@@ -1,11 +1,11 @@
-// Native setup kernels for amg_tpu: CSR SpGEMM (Gustavson), transpose,
+// Native setup kernels for amg_jax: CSR SpGEMM (Gustavson), transpose,
 // Galerkin RAP, and PMIS coarsening.
 //
 // These are the setup-time graph algorithms the reference obtains from
 // hypre/Eigen (reference: hypre_CSRMatrixMultiply / hypre_ParMatmul,
 // EigenMatMat src/SMEM_Setup.cpp:1256-1339, BoomerAMG PMIS coarsening) —
 // implemented natively because they are irregular row-wise algorithms that
-// do not map to TPU kernels; they run once per matrix on the host.
+// do not map to device kernels; they run once per matrix on the host.
 //
 // C ABI for ctypes: output arrays are malloc'd here and released with
 // amg_free. Indices are int32, values double (setup is always f64).
@@ -170,7 +170,7 @@ void pmis_coarsen(int32_t n, const int32_t *s_indptr,
 
 extern "C" {
 
-// Classical direct interpolation (see amg_tpu/setup/interp.py for the
+// Classical direct interpolation (see amg_jax/setup/interp.py for the
 // formula; this is the same algorithm, row-for-row, so results are
 // bit-identical to the Python reference implementation).
 // cf: 1=C 0=F; cmap: coarse index per row (-1 for F rows).
@@ -241,7 +241,7 @@ int64_t interp_direct(int32_t n, int32_t nc,
 }
 
 // Extended+i interpolation — faithful port of the Python implementation in
-// amg_tpu/setup/interp.py::extended_i_interpolation (including its
+// amg_jax/setup/interp.py::extended_i_interpolation (including its
 // row-entry-order-dependent sign filtering), so results match exactly.
 int64_t interp_extpi(int32_t n, int32_t nc,
                      const int32_t *a_indptr, const int32_t *a_indices,
@@ -367,7 +367,7 @@ int64_t interp_extpi(int32_t n, int32_t nc,
 extern "C" {
 
 // HMIS-style coarsening: greedy Ruge-Stüben first pass biases the PMIS
-// measures (matches amg_tpu/setup/coarsen.py::hmis semantics; own
+// measures (matches amg_jax/setup/coarsen.py::hmis semantics; own
 // deterministic randoms). cf_out: 1=C, 0=F.
 void hmis_coarsen(int32_t n, const int32_t *s_indptr,
                   const int32_t *s_indices, uint64_t seed, int8_t *cf_out) {

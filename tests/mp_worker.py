@@ -28,7 +28,7 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from amg_tpu.parallel.multihost import global_mesh_info, init_multihost
+    from amg_jax.parallel.multihost import global_mesh_info, init_multihost
 
     init_multihost(f"localhost:{port}", num_processes=nproc, process_id=pid)
     info = global_mesh_info()
@@ -37,18 +37,18 @@ def main():
     import numpy as np
     import jax.numpy as jnp
 
-    from amg_tpu.parallel import make_row_mesh
-    from amg_tpu.parallel.dist import build_dist_hierarchy, pad_vector
-    from amg_tpu.parallel.grid import grid_parallel_solve, plan_grid_levels
-    from amg_tpu.problems import laplacian_2d_5pt
-    from amg_tpu.setup.hierarchy import (
+    from amg_jax.parallel import make_row_mesh
+    from amg_jax.parallel.dist import build_dist_hierarchy, pad_vector
+    from amg_jax.parallel.grid import grid_parallel_solve, plan_grid_levels
+    from amg_jax.problems import laplacian_2d_5pt
+    from amg_jax.setup.hierarchy import (
         HierarchyParams,
         build_host_hierarchy,
         device_hierarchy,
     )
-    from amg_tpu.smooth import SmootherType
-    from amg_tpu.solve import CycleConfig, CycleType, solve
-    from amg_tpu.solve.async_sim import AsyncConfig
+    from amg_jax.smooth import SmootherType
+    from amg_jax.solve import CycleConfig, CycleType, solve
+    from amg_jax.solve.async_sim import AsyncConfig
 
     D = info["global_devices"]
     prob = laplacian_2d_5pt(24)
@@ -82,8 +82,8 @@ def main():
 
     # 3) grid-mapped extended system: level blocks sharded onto device
     #    groups spanning both processes
-    from amg_tpu.solve.accel import estimate_cycle_eigs
-    from amg_tpu.solve.extended import (
+    from amg_jax.solve.accel import estimate_cycle_eigs
+    from amg_jax.solve.extended import (
         build_sharded_extended_system,
         ext_matvec,
         ext_solve,
@@ -104,8 +104,8 @@ def main():
     # 4) Maxwell DISTRIBUTED (BASELINE config 5 as specified): sharded
     #    AMS-PCG with halo comm crossing the process boundary
     #    (reference: src/Maxwell.cpp:50-208 + src/DMEM_Comm.cpp)
-    from amg_tpu.problems.maxwell import maxwell_curlcurl
-    from amg_tpu.solve.ams import build_sharded_ams, solve_sharded_ams_pcg
+    from amg_jax.problems.maxwell import maxwell_curlcurl
+    from amg_jax.solve.ams import build_sharded_ams, solve_sharded_ams_pcg
 
     # round-5 (verdict item 8): n=16 -> 10,800 kept edges, so each of the
     # 2 processes holds a non-trivial shard and the Gloo halo channel
@@ -132,8 +132,8 @@ def main():
     #    ACCUMULATE psum per superstep across Gloo
     #    (reference: src/Maxwell.cpp -> src/DMEM_Add.cpp over
     #    src/DMEM_Comm.cpp:81-348)
-    from amg_tpu.setup.hierarchy import _format_converter
-    from amg_tpu.solve.ams import ams_grid_parallel_solve, build_ams
+    from amg_jax.setup.hierarchy import _format_converter
+    from amg_jax.solve.ams import ams_grid_parallel_solve, build_ams
 
     pax = maxwell_curlcurl(n=6, sigma=1.0)
     ams_a, _ncfg = build_ams(pax.A, pax.aux["G"], Pi=pax.aux["Pi"])

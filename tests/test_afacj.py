@@ -11,13 +11,13 @@ import pytest
 
 import jax.numpy as jnp
 
-from amg_tpu.problems import difconv_3d, laplacian_2d_5pt
-from amg_tpu.setup.hierarchy import HierarchyParams, build_hierarchy
-from amg_tpu.setup.coarsen import C_PT
-from amg_tpu.smooth import SmootherType
-from amg_tpu.solve import CycleConfig, CycleType, solve
-from amg_tpu.solve.driver import cheby_setup
-from amg_tpu.sparse.ell import ell_from_csr
+from amg_jax.problems import difconv_3d, laplacian_2d_5pt
+from amg_jax.setup.hierarchy import HierarchyParams, build_hierarchy
+from amg_jax.setup.coarsen import C_PT
+from amg_jax.smooth import SmootherType
+from amg_jax.solve import CycleConfig, CycleType, solve
+from amg_jax.solve.driver import cheby_setup
+from amg_jax.sparse.ell import ell_from_csr
 
 
 def test_pid_structure():
@@ -82,8 +82,8 @@ def test_afacj_converges_and_beats_injection():
 
 
 def test_afacj_defaults_cli():
-    from amg_tpu.utils.config import SolverOptions
-    from amg_tpu.utils.runner import run_experiment
+    from amg_jax.utils.config import SolverOptions
+    from amg_jax.utils.runner import run_experiment
 
     st = run_experiment(SolverOptions(problem="5pt", n=32, solver="afacj"))
     assert st.rel_resnorm <= 1e-8
@@ -101,10 +101,10 @@ def test_afacj_level_depth_knob():
     import jax.numpy as jnp
     import numpy as np
 
-    from amg_tpu.problems import laplacian_2d_5pt
-    from amg_tpu.setup.hierarchy import HierarchyParams, build_hierarchy
-    from amg_tpu.smooth import SmootherType
-    from amg_tpu.solve import CycleConfig, CycleType, solve
+    from amg_jax.problems import laplacian_2d_5pt
+    from amg_jax.setup.hierarchy import HierarchyParams, build_hierarchy
+    from amg_jax.smooth import SmootherType
+    from amg_jax.solve import CycleConfig, CycleType, solve
 
     prob = laplacian_2d_5pt(32)
     params = HierarchyParams(smoother=SmootherType.L1_JACOBI,
@@ -112,7 +112,7 @@ def test_afacj_level_depth_knob():
     hh, hier = build_hierarchy(prob.A, params)
     assert hh.num_levels >= 4
     b = jnp.asarray(np.random.default_rng(0).random(prob.n))
-    from amg_tpu.solve.driver import cheby_setup
+    from amg_jax.solve.driver import cheby_setup
 
     out = {}
     for depth in (1, 99):
@@ -137,10 +137,10 @@ def test_add_tr_truncates_smoothed_transfers():
     import jax.numpy as jnp
     import numpy as np
 
-    from amg_tpu.problems import laplacian_2d_5pt
-    from amg_tpu.setup.hierarchy import HierarchyParams, build_hierarchy
-    from amg_tpu.smooth import SmootherType
-    from amg_tpu.solve import CycleConfig, CycleType, solve
+    from amg_jax.problems import laplacian_2d_5pt
+    from amg_jax.setup.hierarchy import HierarchyParams, build_hierarchy
+    from amg_jax.smooth import SmootherType
+    from amg_jax.solve import CycleConfig, CycleType, solve
 
     prob = laplacian_2d_5pt(32)
     dense = HierarchyParams(smoother=SmootherType.L1_JACOBI)
@@ -150,7 +150,7 @@ def test_add_tr_truncates_smoothed_transfers():
     hh1, hier1 = build_hierarchy(prob.A, trunc)
     assert hh1.levels[0].P_s.nnz < hh0.levels[0].P_s.nnz
     b = jnp.asarray(np.random.default_rng(0).random(prob.n))
-    from amg_tpu.solve.driver import cheby_setup
+    from amg_jax.solve.driver import cheby_setup
 
     cfg = CycleConfig(cycle=CycleType.MULTADD,
                       smoother=SmootherType.L1_JACOBI,

@@ -7,18 +7,18 @@ import pytest
 
 import jax.numpy as jnp
 
-from amg_tpu.problems import laplacian_2d_5pt
-from amg_tpu.problems.elasticity import elasticity_beam, rigid_body_modes
-from amg_tpu.setup.aggregation import (
+from amg_jax.problems import laplacian_2d_5pt
+from amg_jax.problems.elasticity import elasticity_beam, rigid_body_modes
+from amg_jax.setup.aggregation import (
     aggregate,
     amalgamate,
     build_sa_host_hierarchy,
     sa_strength,
     tentative_prolongator,
 )
-from amg_tpu.setup.hierarchy import HierarchyParams, build_hierarchy
-from amg_tpu.smooth import SmootherType
-from amg_tpu.solve import CycleConfig, CycleType, solve
+from amg_jax.setup.hierarchy import HierarchyParams, build_hierarchy
+from amg_jax.smooth import SmootherType
+from amg_jax.solve import CycleConfig, CycleType, solve
 
 
 def test_rigid_body_modes_in_kernel():
@@ -94,7 +94,7 @@ def test_elasticity_solve(setup_type):
 
 def test_jgs_auto_damping_preserves_convergent_case():
     """On the Laplacian (where undamped JGS converges) auto must keep w=1."""
-    from amg_tpu.smooth import make_smoother_data
+    from amg_jax.smooth import make_smoother_data
 
     p = laplacian_2d_5pt(16)
     sm_auto = make_smoother_data(
@@ -138,7 +138,7 @@ def test_identity_bc_elasticity_sa_solves():
     """The full-grid (bc='identity') beam through SA: clamped dofs are
     excluded from coarsening, rank-deficient aggregate columns dropped, and
     the solve reaches 1e-8 like the reduced system does."""
-    from amg_tpu.problems.elasticity import elasticity_beam as beam
+    from amg_jax.problems.elasticity import elasticity_beam as beam
 
     p = beam(8, 4, 4, bc="identity")
     params = HierarchyParams(setup_type="sa", num_functions=3)
@@ -158,7 +158,7 @@ def test_tentative_prolongator_drops_zero_columns():
     """A 2-node aggregate cannot represent the rotation about its own axis:
     the tentative prolongator's QR yields an exactly-zero column, which must
     be dropped (with its B_coarse row) while keeping P @ Bc == B."""
-    from amg_tpu.setup.aggregation import tentative_prolongator
+    from amg_jax.setup.aggregation import tentative_prolongator
 
     coords = np.array([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0]])
     B = rigid_body_modes(coords)  # (6, 6)

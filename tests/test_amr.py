@@ -9,7 +9,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from amg_tpu.problems.amr import amr_refine_loop, laplacian_tensor
+from amg_jax.problems.amr import amr_refine_loop, laplacian_tensor
 
 
 class TestAmrLoop:
@@ -41,7 +41,7 @@ class TestAmrLoop:
     def test_tensor_assembly_matches_graded(self):
         """laplacian_tensor on graded coordinates reproduces
         laplacian_graded exactly (same kernel)."""
-        from amg_tpu.problems.amr import _graded_coords, laplacian_graded
+        from amg_jax.problems.amr import _graded_coords, laplacian_graded
 
         g = laplacian_graded(10, 10, gamma=2.0)
         xs = _graded_coords(10, 2.0)
@@ -51,8 +51,8 @@ class TestAmrLoop:
 
     def test_amg_solves_amr_problem(self):
         """The adaptively-refined matrix solves through the AMG stack."""
-        from amg_tpu.utils.config import SolverOptions
-        from amg_tpu.utils.runner import run_experiment
+        from amg_jax.utils.config import SolverOptions
+        from amg_jax.utils.runner import run_experiment
 
         st = run_experiment(SolverOptions(
             problem="amr", n=8, amr_rounds=3, solver="mult",

@@ -6,9 +6,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from amg_tpu.problems.maxwell import maxwell_curlcurl
-from amg_tpu.setup.hierarchy import HierarchyParams, _format_converter
-from amg_tpu.solve.ams import ams_precondition, build_ams, solve_ams_pcg
+from amg_jax.problems.maxwell import maxwell_curlcurl
+from amg_jax.setup.hierarchy import HierarchyParams, _format_converter
+from amg_jax.solve.ams import ams_precondition, build_ams, solve_ams_pcg
 
 
 def test_exact_sequence_gradient():
@@ -75,8 +75,8 @@ class TestShardedAMS:
     def _setup(self, n=10, sigma=1.0, D=8):
         import jax
 
-        from amg_tpu.parallel import make_row_mesh
-        from amg_tpu.solve.ams import build_sharded_ams, solve_sharded_ams_pcg
+        from amg_jax.parallel import make_row_mesh
+        from amg_jax.solve.ams import build_sharded_ams, solve_sharded_ams_pcg
 
         p = maxwell_curlcurl(n=n, sigma=sigma)
         mesh = make_row_mesh(D)
@@ -86,7 +86,7 @@ class TestShardedAMS:
         return p, mesh, A_halo, ams, cfg, pad_e
 
     def test_sharded_matches_single_device(self):
-        from amg_tpu.solve.ams import solve_sharded_ams_pcg
+        from amg_jax.solve.ams import solve_sharded_ams_pcg
 
         p, mesh, A_halo, ams, cfg, pad_e = self._setup()
         res8 = solve_sharded_ams_pcg(
@@ -111,9 +111,9 @@ class TestShardedAMS:
         replicated exception, as in the halo V-cycle)."""
         import jax
 
-        from amg_tpu.parallel.dist import pad_vector
-        from amg_tpu.solve.ams import ams_precondition
-        from amg_tpu.solve.krylov import pcg
+        from amg_jax.parallel.dist import pad_vector
+        from amg_jax.solve.ams import ams_precondition
+        from amg_jax.solve.krylov import pcg
 
         p, mesh, A_halo, ams, cfg, pad_e = self._setup()
         b_pad = pad_vector(jnp.asarray(p.rhs), pad_e, mesh)
@@ -143,9 +143,9 @@ class TestShardedAMS:
         (cfg.cycle=multadd) — the async-additive model of the reference's
         config-5 path (src/DMEM_Add.cpp:20-178) driving the Maxwell
         preconditioner."""
-        from amg_tpu.solve import CycleConfig, CycleType
-        from amg_tpu.smooth import SmootherType
-        from amg_tpu.solve.ams import solve_sharded_ams_pcg
+        from amg_jax.solve import CycleConfig, CycleType
+        from amg_jax.smooth import SmootherType
+        from amg_jax.solve.ams import solve_sharded_ams_pcg
 
         p, mesh, A_halo, ams, cfg, pad_e = self._setup()
         cfg_add = CycleConfig(
@@ -178,7 +178,7 @@ class TestAsyncAdditiveAMS:
         return p, ams, A, jnp.asarray(p.rhs)
 
     def test_synchronous_limit_converges(self):
-        from amg_tpu.solve.ams import ams_async_additive_solve
+        from amg_jax.solve.ams import ams_async_additive_solve
 
         p, ams, A, b = self._setup()
         res = ams_async_additive_solve(
@@ -192,7 +192,7 @@ class TestAsyncAdditiveAMS:
         """Async reads up to 2 supersteps stale, full-AMS groups,
         auto-omega: contraction well below the round-4 0.97 — asserted
         <= 0.95/cycle asymptotically — and tolerance 1e-6 reached."""
-        from amg_tpu.solve.ams import ams_async_additive_solve
+        from amg_jax.solve.ams import ams_async_additive_solve
 
         p, ams, A, b = self._setup()
         res = ams_async_additive_solve(
@@ -211,7 +211,7 @@ class TestAsyncAdditiveAMS:
         eigenvalue collapses (kappa ~46 vs ~2 ideal) and the async solve
         contracts at >= 0.97 — the round-4 behavior, kept as a negative
         control."""
-        from amg_tpu.solve.ams import ams_async_additive_solve
+        from amg_jax.solve.ams import ams_async_additive_solve
 
         p, ams, A, b = self._setup(with_pi=False)
         res = ams_async_additive_solve(
@@ -274,8 +274,8 @@ class TestAMSGridParallel:
         return p, ams, A, b
 
     def test_matches_single_program_and_converges_1e6(self):
-        from amg_tpu.parallel import make_row_mesh
-        from amg_tpu.solve.ams import (
+        from amg_jax.parallel import make_row_mesh
+        from amg_jax.solve.ams import (
             ams_async_additive_solve,
             ams_grid_parallel_solve,
         )
@@ -301,10 +301,10 @@ class TestAMSGridParallel:
         """Per-device operator bytes are proportional to the groups the
         device owns, not the full AMS ensemble (redistributed gridk
         ownership, src/DMEM_Setup.cpp:216-334)."""
-        from amg_tpu.parallel.grid import pack_device_pools
-        from amg_tpu.solve.ams import _ams_owned_rows, plan_ams_groups
-        from amg_tpu.solve.cycles import CycleConfig, CycleType
-        from amg_tpu.smooth import SmootherType
+        from amg_jax.parallel.grid import pack_device_pools
+        from amg_jax.solve.ams import _ams_owned_rows, plan_ams_groups
+        from amg_jax.solve.cycles import CycleConfig, CycleType
+        from amg_jax.smooth import SmootherType
 
         p, ams, A, b = self._setup()
         cfg_add = CycleConfig(
@@ -329,8 +329,8 @@ class TestShardedFullAMS:
     exactly like G — HaloELL boundary segments only)."""
 
     def test_sharded_pi_matches_single_device(self):
-        from amg_tpu.parallel import make_row_mesh
-        from amg_tpu.solve.ams import build_sharded_ams, solve_sharded_ams_pcg
+        from amg_jax.parallel import make_row_mesh
+        from amg_jax.solve.ams import build_sharded_ams, solve_sharded_ams_pcg
 
         p = maxwell_curlcurl(n=10)
         mesh = make_row_mesh(8)
@@ -358,17 +358,17 @@ def test_grid_parallel_empty_device_branch():
     devices group-less and lax.switch rejected the replicated/varying
     branch mismatch ('varying manual axes do not match'). Reproduced
     here cheaply by passing an explicit assignment with an empty device."""
-    from amg_tpu.parallel import make_row_mesh
-    from amg_tpu.problems.maxwell import maxwell_curlcurl
-    from amg_tpu.setup.hierarchy import HierarchyParams, _format_converter
-    from amg_tpu.solve.ams import build_ams, ams_grid_parallel_solve
+    from amg_jax.parallel import make_row_mesh
+    from amg_jax.problems.maxwell import maxwell_curlcurl
+    from amg_jax.setup.hierarchy import HierarchyParams, _format_converter
+    from amg_jax.solve.ams import build_ams, ams_grid_parallel_solve
 
     p = maxwell_curlcurl(n=8, sigma=1.0)
     ams, _ = build_ams(p.A, p.aux["G"], Pi=p.aux["Pi"])
     A = _format_converter(HierarchyParams())(p.A, jnp.float64)
     b = jnp.asarray(p.rhs / np.linalg.norm(p.rhs))
     mesh = make_row_mesh(8)
-    from amg_tpu.solve.ams import plan_ams_groups
+    from amg_jax.solve.ams import plan_ams_groups
 
     groups_of, gscale = plan_ams_groups(ams, 8)
     # squeeze every group onto the first 7 devices; device 7 owns NOTHING
@@ -387,15 +387,15 @@ def test_grid_parallel_empty_level_device():
     """Same varying-axes hazard in the grid-parallel LEVEL engine
     (parallel/grid.py): a device owning no levels must not break the
     switch."""
-    from amg_tpu.parallel import make_row_mesh
-    from amg_tpu.parallel.grid import grid_parallel_solve, plan_grid_levels
-    from amg_tpu.problems import laplacian_2d_5pt
-    from amg_tpu.setup.hierarchy import (
+    from amg_jax.parallel import make_row_mesh
+    from amg_jax.parallel.grid import grid_parallel_solve, plan_grid_levels
+    from amg_jax.problems import laplacian_2d_5pt
+    from amg_jax.setup.hierarchy import (
         HierarchyParams, build_host_hierarchy, device_hierarchy,
     )
-    from amg_tpu.smooth import SmootherType
-    from amg_tpu.solve import CycleConfig, CycleType
-    from amg_tpu.solve.async_sim import AsyncConfig
+    from amg_jax.smooth import SmootherType
+    from amg_jax.solve import CycleConfig, CycleType
+    from amg_jax.solve.async_sim import AsyncConfig
 
     prob = laplacian_2d_5pt(16)
     params = HierarchyParams(

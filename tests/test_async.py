@@ -8,13 +8,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from amg_tpu.problems import laplacian_2d_5pt
-from amg_tpu.setup.hierarchy import HierarchyParams, build_hierarchy
-from amg_tpu.smooth import SmootherType
-from amg_tpu.solve import CycleConfig, CycleType
-from amg_tpu.solve.accel import estimate_cycle_eigs
-from amg_tpu.solve.async_sim import AsyncConfig, async_solve
-from amg_tpu.solve.extended import (
+from amg_jax.problems import laplacian_2d_5pt
+from amg_jax.setup.hierarchy import HierarchyParams, build_hierarchy
+from amg_jax.smooth import SmootherType
+from amg_jax.solve import CycleConfig, CycleType
+from amg_jax.solve.accel import estimate_cycle_eigs
+from amg_jax.solve.async_sim import AsyncConfig, async_solve
+from amg_jax.solve.extended import (
     build_extended_system,
     ext_matvec,
     ext_prolong,
@@ -146,13 +146,13 @@ class TestExtendedSystem:
 
 class TestAsyncSmooth:
     def test_southwell_converges_and_balances(self, setup32):
-        from amg_tpu.solve.async_smooth import (
+        from amg_jax.solve.async_smooth import (
             AsyncSmoothConfig,
             async_smooth_solve,
             block_neighbor_mask,
         )
-        from amg_tpu.smooth import make_smoother_data
-        from amg_tpu.sparse.ell import ell_from_csr
+        from amg_jax.smooth import make_smoother_data
+        from amg_jax.sparse.ell import ell_from_csr
 
         prob, hh, hier, b, params = setup32
         A = ell_from_csr(prob.A)
@@ -168,13 +168,13 @@ class TestAsyncSmooth:
         assert counts.min() > 0
 
     def test_fixed_prob_slower_than_always(self, setup32):
-        from amg_tpu.solve.async_smooth import (
+        from amg_jax.solve.async_smooth import (
             AsyncSmoothConfig,
             async_smooth_solve,
             block_neighbor_mask,
         )
-        from amg_tpu.smooth import make_smoother_data
-        from amg_tpu.sparse.ell import ell_from_csr
+        from amg_jax.smooth import make_smoother_data
+        from amg_jax.sparse.ell import ell_from_csr
 
         prob, hh, hier, b, params = setup32
         A = ell_from_csr(prob.A)
@@ -257,13 +257,13 @@ class TestSpsMinProb:
         (reference: src/DMEM_Setup.cpp:1168-1170). The derived-alpha run
         converges and takes a different trajectory than the fixed-alpha
         run with the same key."""
-        from amg_tpu.solve.async_smooth import (
+        from amg_jax.solve.async_smooth import (
             AsyncSmoothConfig,
             async_smooth_solve,
             block_neighbor_mask,
         )
-        from amg_tpu.smooth import make_smoother_data
-        from amg_tpu.sparse.ell import ell_from_csr
+        from amg_jax.smooth import make_smoother_data
+        from amg_jax.sparse.ell import ell_from_csr
 
         prob, hh, hier, b, params = setup32
         A = ell_from_csr(prob.A)
@@ -329,7 +329,7 @@ class TestAsyncAsymmetricAccel:
     scalar-omega approximation."""
 
     def _coeffs(self, hier, cfg):
-        from amg_tpu.solve.driver import cheby_setup
+        from amg_jax.solve.driver import cheby_setup
 
         return cheby_setup(hier, cfg, num_iters=20)
 
@@ -338,7 +338,7 @@ class TestAsyncAsymmetricAccel:
         reproduce the synchronous Chebyshev solve trajectory exactly (the
         reference's async path degenerates to its sync path when no
         message is ever late)."""
-        from amg_tpu.solve import solve
+        from amg_jax.solve import solve
 
         prob, hh, hier, b, params = setup32
         cfg = multadd_cfg()

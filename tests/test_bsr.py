@@ -5,9 +5,9 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from amg_tpu.sparse import CSRMatrix, bsr_fill_stats, bsr_from_csr
-from amg_tpu.sparse.bsr import bsr_residual, bsr_spgemv, bsr_spmv
-from amg_tpu.sparse.ell import ell_from_csr, ell_spmv
+from amg_jax.sparse import CSRMatrix, bsr_fill_stats, bsr_from_csr
+from amg_jax.sparse.bsr import bsr_residual, bsr_spgemv, bsr_spmv
+from amg_jax.sparse.ell import ell_from_csr, ell_spmv
 
 
 def _random_csr(n, m, density, seed):
@@ -29,7 +29,7 @@ def test_bsr_spmv_matches_csr(bm, bn, n, m):
 
 
 def test_bsr_matches_ell_on_laplacian():
-    from amg_tpu.problems import laplacian_2d_5pt
+    from amg_jax.problems import laplacian_2d_5pt
 
     prob = laplacian_2d_5pt(24)
     csr = prob.A
@@ -67,7 +67,7 @@ def test_bsr_empty_matrix():
 
 
 def test_fill_stats_reports_gather_reduction():
-    from amg_tpu.problems import laplacian_3d_27pt
+    from amg_jax.problems import laplacian_3d_27pt
 
     csr = laplacian_3d_27pt(12).A
     st = bsr_fill_stats(csr, bm=8, bn=8)
@@ -81,16 +81,16 @@ def test_bsr_in_vcycle_matches_ell():
     same operators, same arithmetic (up to summation order)."""
     import jax.numpy as jnp
 
-    from amg_tpu.problems import laplacian_2d_5pt
-    from amg_tpu.setup.hierarchy import HierarchyParams, build_hierarchy
-    from amg_tpu.solve import CycleConfig, CycleType, mult_vcycle
+    from amg_jax.problems import laplacian_2d_5pt
+    from amg_jax.setup.hierarchy import HierarchyParams, build_hierarchy
+    from amg_jax.solve import CycleConfig, CycleType, mult_vcycle
 
     prob = laplacian_2d_5pt(16)
     params = HierarchyParams(keep_stencil_fine=False)
     hh, hier_ell = build_hierarchy(prob.A, params)
 
     # rebuild device levels in BSR
-    from amg_tpu.setup.hierarchy import device_hierarchy
+    from amg_jax.setup.hierarchy import device_hierarchy
 
     params_bsr = HierarchyParams(keep_stencil_fine=False, device_format="bsr")
     hier_bsr = device_hierarchy(hh, params_bsr)

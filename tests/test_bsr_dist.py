@@ -7,12 +7,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from amg_tpu.parallel import make_row_mesh
-from amg_tpu.parallel.dist import build_dist_hierarchy, pad_vector, unpad_vector
-from amg_tpu.problems import laplacian_2d_5pt
-from amg_tpu.setup.hierarchy import HierarchyParams, build_hierarchy
-from amg_tpu.smooth import SmootherType
-from amg_tpu.solve import CycleConfig, CycleType, mult_vcycle
+from amg_jax.parallel import make_row_mesh
+from amg_jax.parallel.dist import build_dist_hierarchy, pad_vector, unpad_vector
+from amg_jax.problems import laplacian_2d_5pt
+from amg_jax.setup.hierarchy import HierarchyParams, build_hierarchy
+from amg_jax.smooth import SmootherType
+from amg_jax.solve import CycleConfig, CycleType, mult_vcycle
 
 
 def test_dist_bsr_vcycle_matches_single_device():
@@ -31,7 +31,7 @@ def test_dist_bsr_vcycle_matches_single_device():
         bsr_bn=8,
     )
     hier_s, pad_info = build_dist_hierarchy(hh, params_bsr, mesh)
-    from amg_tpu.sparse.bsr import BSRMatrix
+    from amg_jax.sparse.bsr import BSRMatrix
 
     assert any(isinstance(lv.A, BSRMatrix) for lv in hier_s.levels)
 

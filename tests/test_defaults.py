@@ -8,8 +8,8 @@ src/SMEM_Sync_AMG.cpp:296-406) — these tests pin that the exact observed
 failing invocations converge, with margin.
 """
 
-from amg_tpu.utils.config import SolverOptions
-from amg_tpu.utils.runner import run_experiment
+from amg_jax.utils.config import SolverOptions
+from amg_jax.utils.runner import run_experiment
 
 
 def _run(**kw):
@@ -88,7 +88,7 @@ def test_fixup_defaults_additive_accel():
 def test_staged_smoke_flags(tmp_path):
     """-only_build_matrix / -print_matrix staged smoke (reference:
     -only_build_matrix, DMEM_Main.cpp:661-667; matrix dump round-trip)."""
-    from amg_tpu.problems.io import read_binary_triplets
+    from amg_jax.problems.io import read_binary_triplets
 
     path = str(tmp_path / "a.bin")
     st = _run(problem="5pt", n=8, only_build_matrix=True, print_matrix=path)

@@ -1,7 +1,7 @@
 """Grid-mapped extended system: level blocks sharded onto device groups.
 
 The flattened multilevel system AA U = C^T r with blocks padded to shard
-boundaries (pad_extended_layout) is the TPU realization of the reference's
+boundaries (pad_extended_layout) is the realization of the reference's
 AssignProcs split applied to the PAR_BPX extended system (reference:
 src/DMEM_Setup.cpp:1638-1759, src/SMEM_ExtendedSystem.cpp:9-907)."""
 
@@ -11,17 +11,17 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from amg_tpu.parallel import make_row_mesh
-from amg_tpu.parallel.dist import pad_extended_layout
-from amg_tpu.parallel.partition import (
+from amg_jax.parallel import make_row_mesh
+from amg_jax.parallel.dist import pad_extended_layout
+from amg_jax.parallel.partition import (
     assign_levels_to_devices,
     compute_level_work,
 )
-from amg_tpu.problems import laplacian_2d_5pt
-from amg_tpu.setup.hierarchy import HierarchyParams, build_hierarchy
-from amg_tpu.smooth import SmootherType
-from amg_tpu.solve.accel import estimate_cycle_eigs
-from amg_tpu.solve.extended import (
+from amg_jax.problems import laplacian_2d_5pt
+from amg_jax.setup.hierarchy import HierarchyParams, build_hierarchy
+from amg_jax.smooth import SmootherType
+from amg_jax.solve.accel import estimate_cycle_eigs
+from amg_jax.solve.extended import (
     build_extended_system,
     build_sharded_extended_system,
     ext_matvec,
@@ -145,8 +145,8 @@ class TestShardedExtendedSystem:
 
 
 def test_runner_ext_grid_parallel():
-    from amg_tpu.utils.config import SolverOptions
-    from amg_tpu.utils.runner import run_experiment
+    from amg_jax.utils.config import SolverOptions
+    from amg_jax.utils.runner import run_experiment
 
     st = run_experiment(SolverOptions(
         problem="5pt", n=24, solver="explicit_ext_bpx", num_devices=8,

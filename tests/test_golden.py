@@ -21,36 +21,53 @@ GOLDEN_FILES = sorted(glob.glob(os.path.join(GOLDEN_DIR, "*.json")))
     "path", GOLDEN_FILES, ids=[os.path.basename(p) for p in GOLDEN_FILES]
 )
 def test_golden_history(path):
-    """Re-run each BASELINE config and require the exact recorded trajectory:
-    cycle count equal, residual history to 1e-10 relative, hierarchy shape
-    (per-level n, nnz) identical."""
-    from amg_tpu.utils.config import SolverOptions
-    from amg_tpu.utils.runner import run_experiment
+    """Re-run each BASELINE config and require the recorded trajectory:
+    hierarchy shape (per-level n, nnz) identical; float64 runs also keep
+    the cycle count and the residual history to 1e-10 relative. Runs with
+    float32 cycles (-mixed_precision) are held to a band instead."""
+    from amg_jax.utils.config import SolverOptions
+    from amg_jax.utils.runner import run_experiment
 
     with open(path) as f:
         g = json.load(f)
     st = run_experiment(SolverOptions(**g["config"]))
-    assert st.cycles == g["cycles"], (
-        f"cycle count changed: {st.cycles} vs golden {g['cycles']}"
-    )
     assert st.num_levels == g["num_levels"]
     assert st.level_n == g["level_n"], "hierarchy shape (n) drifted"
     assert st.level_nnz == g["level_nnz"], "hierarchy shape (nnz) drifted"
+    # host setup is float64 numpy: exact on every platform and JAX version
+    np.testing.assert_allclose(
+        st.operator_complexity, g["operator_complexity"], rtol=1e-12
+    )
+    if g["config"].get("mixed_precision"):
+        # float32 cycles: the order of float32 sums differs between XLA
+        # versions and devices, which moves each iterate by ~1e-7 relative;
+        # on these kappa~1e8 elasticity operators that shifts the history
+        # by several percent (7.5% seen between JAX releases) and can move
+        # convergence by an iteration or two
+        assert abs(st.cycles - g["cycles"]) <= 2, (
+            f"cycle count {st.cycles} outside golden {g['cycles']} +- 2"
+        )
+        tol = g["config"]["tol"]
+        assert st.rel_resnorm <= tol, f"final residual {st.rel_resnorm}"
+        # the last refinement step contracts by ~10x; a factor 3 either
+        # way of the golden final residual is well inside one step
+        assert g["rel_resnorm"] / 3 <= st.rel_resnorm <= 3 * g["rel_resnorm"]
+        return
+    assert st.cycles == g["cycles"], (
+        f"cycle count changed: {st.cycles} vs golden {g['cycles']}"
+    )
     np.testing.assert_allclose(
         np.asarray(st.history), np.asarray(g["history"]),
         rtol=1e-10, atol=1e-14,
         err_msg="residual history drifted from golden",
     )
-    np.testing.assert_allclose(
-        st.operator_complexity, g["operator_complexity"], rtol=1e-12
-    )
 
 
 # ---------------------------------------------------------------------------
 # Independent oracle: a minimal classical two-grid AMG written in plain
-# numpy/scipy, sharing NO code with amg_tpu.setup — direct interpolation on
+# numpy/scipy, sharing NO code with amg_jax.setup — direct interpolation on
 # a greedy C/F split, dense Galerkin RAP, exact coarse solve, weighted
-# Jacobi smoothing. If amg_tpu's two-level cycle needed far more iterations
+# Jacobi smoothing. If amg_jax's two-level cycle needed far more iterations
 # than this textbook construction, the setup would be broken.
 # ---------------------------------------------------------------------------
 
@@ -110,14 +127,14 @@ def _oracle_two_grid(A, b, tol, max_iters=100, theta=0.25, omega=2.0 / 3.0):
 
 
 def test_two_level_vs_independent_oracle():
-    """amg_tpu's two-level MULT cycle must not need more than 2x the
+    """amg_jax's two-level MULT cycle must not need more than 2x the
     iterations of the independently-written textbook two-grid."""
     import jax.numpy as jnp
 
-    from amg_tpu.problems import laplacian_2d_5pt
-    from amg_tpu.setup.hierarchy import HierarchyParams, build_hierarchy
-    from amg_tpu.smooth import SmootherType
-    from amg_tpu.solve import CycleConfig, CycleType, solve
+    from amg_jax.problems import laplacian_2d_5pt
+    from amg_jax.setup.hierarchy import HierarchyParams, build_hierarchy
+    from amg_jax.smooth import SmootherType
+    from amg_jax.solve import CycleConfig, CycleType, solve
 
     prob = laplacian_2d_5pt(16)
     b_np = np.random.default_rng(0).random(prob.n)
@@ -130,7 +147,7 @@ def test_two_level_vs_independent_oracle():
     res = solve(hier, cfg, jnp.asarray(b_np), tol=1e-8, max_cycles=200)
     assert float(res.rel_resnorm) <= 1e-8
     assert int(res.iters) <= 2 * oracle_iters, (
-        f"amg_tpu 2-level took {int(res.iters)} vs oracle {oracle_iters}"
+        f"amg_jax 2-level took {int(res.iters)} vs oracle {oracle_iters}"
     )
 
 
@@ -149,7 +166,7 @@ def test_goldens_exist():
 # Round-4 (verdict item 7): MULTI-LEVEL independent oracle — a complete
 # classical AMG hierarchy in plain numpy/scipy (strength graph, greedy
 # independent-set C/F split, direct interpolation, sparse Galerkin RAP),
-# sharing NO code with amg_tpu.setup. The repo's HMIS-style/ext+i hierarchy
+# sharing NO code with amg_jax.setup. The repo's HMIS-style/ext+i hierarchy
 # must land inside structural corridors of this textbook construction on 3D
 # problems — a drifting coarsening (e.g. operator complexity +20%) fails.
 # (The reference's iteration counts depend on BoomerAMG's exact hierarchy,
@@ -255,8 +272,8 @@ def _oracle_vcycle_iters(oracle, b, tol=1e-8, max_iters=200, omega=2.0 / 3.0):
 
 @pytest.mark.parametrize("problem", ["27pt16", "7pt20"])
 def test_hierarchy_within_multilevel_oracle_corridor(problem):
-    from amg_tpu.problems import laplacian_3d_7pt, laplacian_3d_27pt
-    from amg_tpu.setup.hierarchy import HierarchyParams, build_host_hierarchy
+    from amg_jax.problems import laplacian_3d_7pt, laplacian_3d_27pt
+    from amg_jax.setup.hierarchy import HierarchyParams, build_host_hierarchy
 
     prob = (
         laplacian_3d_27pt(16) if problem == "27pt16" else laplacian_3d_7pt(20)
@@ -290,10 +307,10 @@ def test_convergence_within_multilevel_oracle_corridor(problem):
     1e-8) — the multi-level analog of the round-1 two-grid oracle."""
     import jax.numpy as jnp
 
-    from amg_tpu.problems import laplacian_3d_7pt, laplacian_3d_27pt
-    from amg_tpu.setup.hierarchy import HierarchyParams, build_hierarchy
-    from amg_tpu.smooth import SmootherType
-    from amg_tpu.solve import CycleConfig, CycleType, solve
+    from amg_jax.problems import laplacian_3d_7pt, laplacian_3d_27pt
+    from amg_jax.setup.hierarchy import HierarchyParams, build_hierarchy
+    from amg_jax.smooth import SmootherType
+    from amg_jax.solve import CycleConfig, CycleType, solve
 
     prob = (
         laplacian_3d_27pt(16) if problem == "27pt16" else laplacian_3d_7pt(16)
@@ -309,5 +326,5 @@ def test_convergence_within_multilevel_oracle_corridor(problem):
     res = solve(hier, cfg, jnp.asarray(b), tol=1e-8, max_cycles=400)
     assert float(res.rel_resnorm) <= 1e-8
     assert int(res.iters) <= max(1.6 * oracle_iters, oracle_iters + 3), (
-        f"amg_tpu took {int(res.iters)} vs oracle {oracle_iters}"
+        f"amg_jax took {int(res.iters)} vs oracle {oracle_iters}"
     )

@@ -12,18 +12,18 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from amg_tpu.parallel import make_row_mesh
-from amg_tpu.parallel.grid import (
+from amg_jax.parallel import make_row_mesh
+from amg_jax.parallel.grid import (
     device_branch_fn,
     grid_parallel_solve,
     plan_grid_levels,
 )
-from amg_tpu.parallel.partition import compute_level_work
-from amg_tpu.problems import laplacian_2d_5pt
-from amg_tpu.setup.hierarchy import HierarchyParams, build_hierarchy
-from amg_tpu.smooth import SmootherType
-from amg_tpu.solve import CycleConfig, CycleType
-from amg_tpu.solve.async_sim import AsyncConfig, async_solve
+from amg_jax.parallel.partition import compute_level_work
+from amg_jax.problems import laplacian_2d_5pt
+from amg_jax.setup.hierarchy import HierarchyParams, build_hierarchy
+from amg_jax.smooth import SmootherType
+from amg_jax.solve import CycleConfig, CycleType
+from amg_jax.solve.async_sim import AsyncConfig, async_solve
 
 
 @pytest.fixture(scope="module")
@@ -317,7 +317,7 @@ class TestOwnedStorage:
         reflect only ITS levels (plus the transfer chain down to them) —
         not the full hierarchy — and the sharded pool allocation per
         device is max_d(owned), far below replicating everything."""
-        from amg_tpu.parallel.grid import build_grid_owned_storage
+        from amg_jax.parallel.grid import build_grid_owned_storage
 
         prob, hh, hier, b = setup32
         _, levels_of, scale = plan_grid_levels(hh, 8)
@@ -355,11 +355,11 @@ class TestOwnedStorage:
         """Every additive_correction a device runs is computable from its
         reconstructed view alone (None leaves outside the keep-set would
         raise), and is bit-identical to the full-hierarchy result."""
-        from amg_tpu.parallel.grid import (
+        from amg_jax.parallel.grid import (
             _reconstruct_view,
             build_grid_owned_storage,
         )
-        from amg_tpu.solve.cycles import additive_correction
+        from amg_jax.solve.cycles import additive_correction
 
         prob, hh, hier, b = setup32
         _, levels_of, _ = plan_grid_levels(hh, 4)
@@ -383,7 +383,7 @@ class TestGridAsymmetricAccel:
     psum, so acceleration costs no extra communication."""
 
     def test_accel_matches_async_sim(self, setup32):
-        from amg_tpu.solve.driver import cheby_setup
+        from amg_jax.solve.driver import cheby_setup
 
         prob, hh, hier, b = setup32
         coeffs = cheby_setup(hier, CFG, num_iters=20)
@@ -409,7 +409,7 @@ class TestGridAsymmetricAccel:
         )
 
     def test_accel_beats_scalar(self, setup32):
-        from amg_tpu.solve.driver import cheby_setup
+        from amg_jax.solve.driver import cheby_setup
 
         prob, hh, hier, b = setup32
         coeffs = cheby_setup(hier, CFG, num_iters=20)

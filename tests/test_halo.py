@@ -8,10 +8,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from amg_tpu.parallel import make_row_mesh
-from amg_tpu.parallel.dist import shard_vector
-from amg_tpu.parallel.halo import halo_jacobi_sweep, halo_stencil_matvec
-from amg_tpu.problems import laplacian_3d_27pt, laplacian_3d_7pt
+from amg_jax.parallel import make_row_mesh
+from amg_jax.parallel.dist import shard_vector
+from amg_jax.parallel.halo import halo_jacobi_sweep, halo_stencil_matvec
+from amg_jax.problems import laplacian_3d_27pt, laplacian_3d_7pt
 
 
 @pytest.fixture(scope="module")
@@ -45,8 +45,8 @@ def test_halo_matvec_constant_vector_probe(mesh):
 def test_halo_var_stencil(mesh):
     """Variable-coefficient (PFMG-style) level operator through the halo
     path."""
-    from amg_tpu.setup.structured import build_structured_hierarchy
-    from amg_tpu.smooth import SmootherType
+    from amg_jax.setup.structured import build_structured_hierarchy
+    from amg_jax.smooth import SmootherType
 
     prob = laplacian_3d_27pt(16)
     _, hier = build_structured_hierarchy(
@@ -83,7 +83,7 @@ def test_halo_jacobi_sweep_matches(mesh):
 
 def test_halo_stencil_operator_matmul(mesh):
     """HaloStencilOperator's @ equals the single-device stencil matvec."""
-    from amg_tpu.parallel.halo import make_halo_stencil
+    from amg_jax.parallel.halo import make_halo_stencil
 
     prob = laplacian_3d_27pt(16)
     h = make_halo_stencil(prob.stencil, mesh)
@@ -97,8 +97,8 @@ def test_halo_stencil_operator_matmul(mesh):
 def test_runner_async_smooth_distributed():
     """The distributed one-level async smoothing path (halo exchange per
     sweep, reference src/DMEM_Smooth.cpp:16-313) solves through the CLI."""
-    from amg_tpu.utils.config import SolverOptions
-    from amg_tpu.utils.runner import run_experiment
+    from amg_jax.utils.config import SolverOptions
+    from amg_jax.utils.runner import run_experiment
 
     st = run_experiment(SolverOptions(
         problem="7pt", n=16, solver="async_smooth", num_devices=8,

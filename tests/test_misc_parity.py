@@ -8,10 +8,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from amg_tpu.problems import difconv_3d
-from amg_tpu.setup.hierarchy import HierarchyParams, build_hierarchy
-from amg_tpu.smooth import SmootherType
-from amg_tpu.solve import CycleConfig, CycleType, solve
+from amg_jax.problems import difconv_3d
+from amg_jax.setup.hierarchy import HierarchyParams, build_hierarchy
+from amg_jax.smooth import SmootherType
+from amg_jax.solve import CycleConfig, CycleType, solve
 
 
 @pytest.mark.parametrize("atype,eps", [(0, 1.0), (2, 0.1)])
@@ -50,9 +50,9 @@ def test_divergence_guard_stops_early():
 
 
 def test_checkpoint_roundtrip(tmp_path):
-    from amg_tpu.utils.checkpoint import load_solve_state, save_solve_state
+    from amg_jax.utils.checkpoint import load_solve_state, save_solve_state
 
-    from amg_tpu.problems import laplacian_2d_5pt
+    from amg_jax.problems import laplacian_2d_5pt
 
     p = laplacian_2d_5pt(16)
     params = HierarchyParams()
@@ -84,7 +84,7 @@ def test_difconv_anisotropic_diffusion_matches_7pt():
     convection, difconv is the anisotropic 7-pt Laplacian scaled by 1/h^2."""
     import numpy as np
 
-    from amg_tpu.problems import laplacian_3d_7pt
+    from amg_jax.problems import laplacian_3d_7pt
 
     n = 6
     h = 1.0 / (n + 1)
@@ -97,8 +97,8 @@ def test_difconv_anisotropic_diffusion_matches_7pt():
 
 
 def test_difconv_cli_coefficient_flags():
-    from amg_tpu.utils.cli import build_parser
-    from amg_tpu.utils.config import SolverOptions
+    from amg_jax.utils.cli import build_parser
+    from amg_jax.utils.config import SolverOptions
 
     args = build_parser().parse_args(
         "-problem difconv -n 8 -ax 0.5 -cy 3.0".split()
@@ -111,7 +111,7 @@ def test_difconv_cli_coefficient_flags():
 def test_num_smooth_sweeps_sets_all_phases():
     """-num_smooth_sweeps N is the reference's one-knob spelling for all
     sweep counts (src/DMEM_Main.cpp:489-497)."""
-    from amg_tpu.utils.config import SolverOptions
+    from amg_jax.utils.config import SolverOptions
 
     o = SolverOptions(num_smooth_sweeps=3).fixup()
     assert (o.num_pre_smooth_sweeps, o.num_post_smooth_sweeps,
@@ -119,7 +119,7 @@ def test_num_smooth_sweeps_sets_all_phases():
 
 
 def test_cli_reference_aliases_parse():
-    from amg_tpu.utils.cli import build_parser
+    from amg_jax.utils.cli import build_parser
 
     args = build_parser().parse_args(
         "-problem vardifconv -n 8 -vardifconv_eps 0.1 -num_func 2 "
@@ -139,7 +139,7 @@ def test_assign_procs_scalar_policy():
     coarsest grid (reference: src/DMEM_Setup.cpp:1684-1685)."""
     import numpy as np
 
-    from amg_tpu.parallel.partition import assign_levels_to_devices
+    from amg_jax.parallel.partition import assign_levels_to_devices
 
     work = np.full(4, 0.25)
     ranges = assign_levels_to_devices(work, 8, policy="scalar", scalar=0.5)
@@ -156,8 +156,8 @@ def test_delay_some_resolution_in_runner():
     """-delay_some frac resolves to a random fraction of level groups; the
     delayed levels fire with -delay_prob (reference DELAY_SOME,
     src/SMEM_Solve.cpp:116-126)."""
-    from amg_tpu.utils.config import SolverOptions
-    from amg_tpu.utils.runner import run_experiment
+    from amg_jax.utils.config import SolverOptions
+    from amg_jax.utils.runner import run_experiment
 
     o = SolverOptions(problem="5pt", n=16, solver="async_multadd",
                       delay_frac=0.5, delay_prob=0.1, num_cycles=400,

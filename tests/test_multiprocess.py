@@ -78,9 +78,9 @@ def test_two_process_solves():
     import jax.numpy as jnp
     import numpy as np
 
-    from amg_tpu.problems.maxwell import maxwell_curlcurl
-    from amg_tpu.setup.hierarchy import HierarchyParams, _format_converter
-    from amg_tpu.solve.ams import build_ams, solve_ams_pcg
+    from amg_jax.problems.maxwell import maxwell_curlcurl
+    from amg_jax.setup.hierarchy import HierarchyParams, _format_converter
+    from amg_jax.solve.ams import build_ams, solve_ams_pcg
 
     pmx = maxwell_curlcurl(n=16, sigma=1.0)
     ams1, cfg1 = build_ams(pmx.A, pmx.aux["G"], Pi=pmx.aux["Pi"])

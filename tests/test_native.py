@@ -5,11 +5,11 @@ import os
 import numpy as np
 import pytest
 
-from amg_tpu import native_backend as nb
-from amg_tpu.problems import laplacian_2d_5pt, laplacian_3d_27pt
-from amg_tpu.setup.coarsen import C_PT, F_PT, pmis_native
-from amg_tpu.setup.strength import strength_graph
-from amg_tpu.sparse.csr import CSRMatrix
+from amg_jax import native_backend as nb
+from amg_jax.problems import laplacian_2d_5pt, laplacian_3d_27pt
+from amg_jax.setup.coarsen import C_PT, F_PT, pmis_native
+from amg_jax.setup.strength import strength_graph
+from amg_jax.sparse.csr import CSRMatrix
 
 pytestmark = pytest.mark.skipif(
     not nb.available(), reason="native library not built"
@@ -47,21 +47,21 @@ class TestSpGEMM:
 
     def test_rap_native_equals_scipy(self):
         prob = laplacian_2d_5pt(12)
-        from amg_tpu.setup.coarsen import hmis
-        from amg_tpu.setup.interp import extended_i_interpolation
-        from amg_tpu.setup.rap import galerkin_product
+        from amg_jax.setup.coarsen import hmis
+        from amg_jax.setup.interp import extended_i_interpolation
+        from amg_jax.setup.rap import galerkin_product
 
         S = strength_graph(prob.A, 0.25)
         cf = hmis(S)
         P = extended_i_interpolation(prob.A, S, cf)
         R = P.transpose()
-        os.environ["AMG_TPU_NATIVE"] = "1"
+        os.environ["AMG_JAX_NATIVE"] = "1"
         ac_native = galerkin_product(R, prob.A, P)
-        os.environ["AMG_TPU_NATIVE"] = "0"
+        os.environ["AMG_JAX_NATIVE"] = "0"
         try:
             ac_scipy = galerkin_product(R, prob.A, P)
         finally:
-            os.environ["AMG_TPU_NATIVE"] = "1"
+            os.environ["AMG_JAX_NATIVE"] = "1"
         np.testing.assert_allclose(
             ac_native.to_dense(), ac_scipy.to_dense(), atol=1e-13
         )
@@ -108,9 +108,9 @@ class TestNativePMIS:
     def test_full_hierarchy_with_native_coarsening(self):
         import jax.numpy as jnp
 
-        from amg_tpu.setup.hierarchy import HierarchyParams, build_hierarchy
-        from amg_tpu.smooth import SmootherType
-        from amg_tpu.solve import CycleConfig, CycleType, solve
+        from amg_jax.setup.hierarchy import HierarchyParams, build_hierarchy
+        from amg_jax.smooth import SmootherType
+        from amg_jax.solve import CycleConfig, CycleType, solve
 
         prob = laplacian_2d_5pt(24)
         params = HierarchyParams(

@@ -11,25 +11,25 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from amg_tpu.parallel import (
+from amg_jax.parallel import (
     assign_levels_to_devices,
     compute_level_work,
     make_row_mesh,
 )
-from amg_tpu.parallel.dist import (
+from amg_jax.parallel.dist import (
     build_dist_hierarchy,
     pad_vector,
     unpad_vector,
 )
-from amg_tpu.problems import laplacian_2d_5pt
-from amg_tpu.setup.hierarchy import (
+from amg_jax.problems import laplacian_2d_5pt
+from amg_jax.setup.hierarchy import (
     HierarchyParams,
     build_hierarchy,
     build_host_hierarchy,
 )
-from amg_tpu.smooth import SmootherType
-from amg_tpu.solve import CycleConfig, CycleType, solve
-from amg_tpu.solve.cycles import additive_correction, sync_additive_cycle
+from amg_jax.smooth import SmootherType
+from amg_jax.solve import CycleConfig, CycleType, solve
+from amg_jax.solve.cycles import additive_correction, sync_additive_cycle
 
 
 @pytest.fixture(scope="module")
@@ -162,7 +162,7 @@ class TestDistAsync:
         """The bounded-staleness async additive solve (config 5 semantics)
         runs unchanged on the row-sharded hierarchy: corrections accumulate
         through XLA collectives, staleness/firing per level group."""
-        from amg_tpu.solve.async_sim import AsyncConfig, async_solve
+        from amg_jax.solve.async_sim import AsyncConfig, async_solve
 
         prob, hh, hier, hier_s, pad_info, mesh, b = dist_setup
         cfg = CycleConfig(
@@ -186,9 +186,9 @@ class TestDistStructured:
         """GSPMD-sharded structured hierarchy: the pad+shift stencil matvec
         gets compiler-inserted halo exchanges; solve is iteration-identical
         to single-device."""
-        from amg_tpu.parallel.dist import shard_structured_hierarchy, shard_vector
-        from amg_tpu.problems import laplacian_3d_27pt
-        from amg_tpu.setup.structured import build_structured_hierarchy
+        from amg_jax.parallel.dist import shard_structured_hierarchy, shard_vector
+        from amg_jax.problems import laplacian_3d_27pt
+        from amg_jax.setup.structured import build_structured_hierarchy
 
         prob = laplacian_3d_27pt(32)
         hh, hier = build_structured_hierarchy(

@@ -7,14 +7,14 @@ import pytest
 
 import jax.numpy as jnp
 
-from amg_tpu.parallel import make_row_mesh
-from amg_tpu.parallel.dist import build_dist_hierarchy, pad_vector
-from amg_tpu.problems import laplacian_2d_5pt
-from amg_tpu.setup.hierarchy import HierarchyParams, build_hierarchy, build_host_hierarchy
-from amg_tpu.smooth import SmootherType
-from amg_tpu.solve import CycleConfig, CycleType
-from amg_tpu.solve.cycles import cycle_step
-from amg_tpu.utils.phases import profile_phases
+from amg_jax.parallel import make_row_mesh
+from amg_jax.parallel.dist import build_dist_hierarchy, pad_vector
+from amg_jax.problems import laplacian_2d_5pt
+from amg_jax.setup.hierarchy import HierarchyParams, build_hierarchy, build_host_hierarchy
+from amg_jax.smooth import SmootherType
+from amg_jax.solve import CycleConfig, CycleType
+from amg_jax.solve.cycles import cycle_step
+from amg_jax.utils.phases import profile_phases
 
 
 @pytest.fixture(scope="module")
@@ -71,7 +71,7 @@ def test_comm_accounting_halo(setup24):
 
 
 def test_cli_num_runs_aggregation(capsys):
-    from amg_tpu.utils.cli import main
+    from amg_jax.utils.cli import main
 
     main(["-problem", "5pt", "-n", "16", "-solver", "mult",
           "-num_runs", "2", "-print_level_stats"])
@@ -83,7 +83,7 @@ def test_cli_num_runs_aggregation(capsys):
 def test_cli_iteration_sweep(capsys):
     """-start/-incr/-max_num_iters re-runs the solve at each fixed cycle
     count (reference: src/SMEM_Main.cpp:108-110,694)."""
-    from amg_tpu.utils.cli import main
+    from amg_jax.utils.cli import main
 
     main(["-problem", "5pt", "-n", "16", "-solver", "mult", "-tol", "0",
           "-start_num_iters", "2", "-incr_num_iters", "2",
@@ -98,8 +98,8 @@ class TestStructuredPhases:
     def test_structured_hierarchy_profiles(self):
         """Per-phase profiling covers structured/DIA hierarchies (round 4):
         the segmented profiler is duck-typed over the level operators."""
-        from amg_tpu.utils.config import SolverOptions
-        from amg_tpu.utils.runner import run_experiment
+        from amg_jax.utils.config import SolverOptions
+        from amg_jax.utils.runner import run_experiment
 
         st = run_experiment(SolverOptions(
             problem="elasticity", nx=16, ny=4, nz=4, elast_bc="identity",

@@ -5,8 +5,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from amg_tpu.problems.elasticity import elasticity_beam, lame_params
-from amg_tpu.problems.io import (
+from amg_jax.problems.elasticity import elasticity_beam, lame_params
+from amg_jax.problems.io import (
     bin_to_text,
     problem_from_file,
     rcm_reorder,
@@ -14,8 +14,8 @@ from amg_tpu.problems.io import (
     text_to_bin,
     write_binary_triplets,
 )
-from amg_tpu.problems.maxwell import maxwell_curlcurl
-from amg_tpu.problems import laplacian_2d_5pt
+from amg_jax.problems.maxwell import maxwell_curlcurl
+from amg_jax.problems import laplacian_2d_5pt
 
 
 class TestElasticity:
@@ -115,7 +115,7 @@ class TestMaxwell:
             )
         e_full = np.concatenate(comps)
         # restrict to the kept (interior) edges: recompute keep mask
-        from amg_tpu.problems.maxwell import _edge_ids
+        from amg_jax.problems.maxwell import _edge_ids
 
         eshapes, eoff = _edge_ids(n)
         keep = np.ones(int(eoff[-1]), dtype=bool)
@@ -157,7 +157,7 @@ class TestMatrixIO:
     def test_symmetrize(self, tmp_path):
         import scipy.sparse as sp
 
-        from amg_tpu.sparse.csr import CSRMatrix
+        from amg_jax.sparse.csr import CSRMatrix
 
         # store only the lower triangle, read back symmetrized
         prob = laplacian_2d_5pt(5)
@@ -170,7 +170,7 @@ class TestMatrixIO:
     def test_remove_disconnected(self, tmp_path):
         import scipy.sparse as sp
 
-        from amg_tpu.sparse.csr import CSRMatrix
+        from amg_jax.sparse.csr import CSRMatrix
 
         a = laplacian_2d_5pt(4).A.to_dense()
         n = a.shape[0]
@@ -192,9 +192,9 @@ class TestMatrixIO:
         np.testing.assert_allclose(e1, e2, atol=1e-10)
 
     def test_problem_from_file_solvable(self, tmp_path):
-        from amg_tpu.setup.hierarchy import HierarchyParams, build_hierarchy
-        from amg_tpu.smooth import SmootherType
-        from amg_tpu.solve import CycleConfig, CycleType, solve
+        from amg_jax.setup.hierarchy import HierarchyParams, build_hierarchy
+        from amg_jax.smooth import SmootherType
+        from amg_jax.solve import CycleConfig, CycleType, solve
 
         prob = laplacian_2d_5pt(12)
         path = str(tmp_path / "lap.bin")
@@ -210,7 +210,7 @@ class TestMatrixIO:
 
 class TestGradedMesh:
     def test_spd_and_multiscale(self):
-        from amg_tpu.problems.amr import laplacian_graded
+        from amg_jax.problems.amr import laplacian_graded
 
         p = laplacian_graded(24, gamma=2.5)
         A = p.A.to_dense()
@@ -220,10 +220,10 @@ class TestGradedMesh:
         assert d.max() / d.min() > 20  # multiscale h (the AMR character)
 
     def test_amg_solves_graded(self):
-        from amg_tpu.problems.amr import laplacian_graded
-        from amg_tpu.setup.hierarchy import HierarchyParams, build_hierarchy
-        from amg_tpu.smooth import SmootherType
-        from amg_tpu.solve import CycleConfig, CycleType, solve
+        from amg_jax.problems.amr import laplacian_graded
+        from amg_jax.setup.hierarchy import HierarchyParams, build_hierarchy
+        from amg_jax.smooth import SmootherType
+        from amg_jax.solve import CycleConfig, CycleType, solve
 
         p = laplacian_graded(24, gamma=2.5)
         hh, hier = build_hierarchy(

@@ -3,17 +3,17 @@
 import numpy as np
 import pytest
 
-from amg_tpu.problems import laplacian_2d_5pt, laplacian_3d_7pt
-from amg_tpu.setup.coarsen import C_PT, F_PT, hmis, pmis
-from amg_tpu.setup.hierarchy import HierarchyParams, build_host_hierarchy
-from amg_tpu.setup.interp import (
+from amg_jax.problems import laplacian_2d_5pt, laplacian_3d_7pt
+from amg_jax.setup.coarsen import C_PT, F_PT, hmis, pmis
+from amg_jax.setup.hierarchy import HierarchyParams, build_host_hierarchy
+from amg_jax.setup.interp import (
     direct_interpolation,
     extended_i_interpolation,
     truncate_interpolation,
 )
-from amg_tpu.setup.rap import galerkin_product, smoothed_transfer
-from amg_tpu.setup.strength import strength_graph
-from amg_tpu.smooth import SmootherType
+from amg_jax.setup.rap import galerkin_product, smoothed_transfer
+from amg_jax.setup.strength import strength_graph
+from amg_jax.smooth import SmootherType
 
 
 @pytest.fixture(scope="module")
@@ -168,11 +168,11 @@ class TestHmisExact:
     def test_valid_splitting(self):
         import scipy.sparse as sp
 
-        from amg_tpu.problems import laplacian_2d_5pt
-        from amg_tpu.setup.coarsen import (
+        from amg_jax.problems import laplacian_2d_5pt
+        from amg_jax.setup.coarsen import (
             C_PT, F_PT, _rs_first_pass, hmis_exact,
         )
-        from amg_tpu.setup.strength import strength_graph
+        from amg_jax.setup.strength import strength_graph
 
         prob = laplacian_2d_5pt(20)
         S = strength_graph(prob.A, 0.25)
@@ -191,8 +191,8 @@ class TestHmisExact:
         assert 0 < nc < prob.n
 
     def test_solves(self):
-        from amg_tpu.utils.config import SolverOptions
-        from amg_tpu.utils.runner import run_experiment
+        from amg_jax.utils.config import SolverOptions
+        from amg_jax.utils.runner import run_experiment
 
         st = run_experiment(SolverOptions(
             problem="5pt", n=24, solver="mult", coarsen_type="hmis_exact",
@@ -208,10 +208,10 @@ class TestAggressiveCoarsening:
         two-stage interpolant still yields a convergent MULT hierarchy."""
         import jax.numpy as jnp
 
-        from amg_tpu.problems import laplacian_2d_5pt
-        from amg_tpu.setup.hierarchy import HierarchyParams, build_hierarchy
-        from amg_tpu.smooth import SmootherType
-        from amg_tpu.solve import CycleConfig, CycleType, solve
+        from amg_jax.problems import laplacian_2d_5pt
+        from amg_jax.setup.hierarchy import HierarchyParams, build_hierarchy
+        from amg_jax.smooth import SmootherType
+        from amg_jax.solve import CycleConfig, CycleType, solve
 
         prob = laplacian_2d_5pt(32)
         base = HierarchyParams(smoother=SmootherType.L1_JACOBI)

@@ -3,11 +3,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from amg_tpu.problems import laplacian_2d_5pt
-from amg_tpu.smooth import SmootherType, make_smoother_data, smooth, smooth_transpose
-from amg_tpu.smooth.smoothers import gs_scan_sweep
-from amg_tpu.sparse.csr import CSRMatrix
-from amg_tpu.sparse.ell import ell_from_csr
+from amg_jax.problems import laplacian_2d_5pt
+from amg_jax.smooth import SmootherType, make_smoother_data, smooth, smooth_transpose
+from amg_jax.smooth.smoothers import gs_scan_sweep
+from amg_jax.sparse.csr import CSRMatrix
+from amg_jax.sparse.ell import ell_from_csr
 
 
 def spd_problem(n=24, seed=0):

@@ -7,11 +7,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from amg_tpu.problems import laplacian_2d_5pt, laplacian_3d_27pt
-from amg_tpu.setup.hierarchy import HierarchyParams, build_hierarchy
-from amg_tpu.smooth import SmootherType
-from amg_tpu.solve import CycleConfig, CycleType, solve
-from amg_tpu.solve.driver import cheby_setup
+from amg_jax.problems import laplacian_2d_5pt, laplacian_3d_27pt
+from amg_jax.setup.hierarchy import HierarchyParams, build_hierarchy
+from amg_jax.smooth import SmootherType
+from amg_jax.solve import CycleConfig, CycleType, solve
+from amg_jax.solve.driver import cheby_setup
 
 
 @pytest.fixture(scope="module")
@@ -128,8 +128,8 @@ class TestLanczos:
     def test_lanczos_bounds_match_power(self):
         import jax.numpy as jnp
 
-        from amg_tpu.solve.accel import estimate_cycle_eigs, estimate_eigs_lanczos
-        from amg_tpu.solve.cycles import cycle_step
+        from amg_jax.solve.accel import estimate_cycle_eigs, estimate_eigs_lanczos
+        from amg_jax.solve.cycles import cycle_step
 
         prob = laplacian_2d_5pt(16)
         params = HierarchyParams(smoother=SmootherType.JACOBI)
@@ -152,7 +152,7 @@ class TestLOBPCG:
         Jacobi-preconditioned operator from one run."""
         import jax.numpy as jnp
 
-        from amg_tpu.solve.accel import estimate_eigs_lobpcg
+        from amg_jax.solve.accel import estimate_eigs_lobpcg
 
         prob = laplacian_2d_5pt(16)
         params = HierarchyParams(smoother=SmootherType.JACOBI)
@@ -173,7 +173,7 @@ class TestLOBPCG:
     def test_cheby_eig_method_selector(self):
         """cheby_setup's method menu: all three estimators produce coeffs
         that accelerate the additive solve to tolerance."""
-        from amg_tpu.solve.driver import cheby_setup
+        from amg_jax.solve.driver import cheby_setup
 
         prob = laplacian_2d_5pt(24)
         params = HierarchyParams(smoother=SmootherType.L1_JACOBI)
@@ -196,7 +196,7 @@ class TestLOBPCG:
     def test_cli_cheby_eig_aliases(self):
         """Reference spellings hypre_lobpcg/slepc map to the native
         estimators in the post-parse fixup (src/SMEM_Main.cpp:606-618)."""
-        from amg_tpu.utils.config import SolverOptions
+        from amg_jax.utils.config import SolverOptions
 
         o = SolverOptions(cheby_eig="hypre_lobpcg").fixup()
         assert o.cheby_eig == "lobpcg"
@@ -249,8 +249,8 @@ class TestMultMultadd:
         )
 
     def test_cli_solver(self):
-        from amg_tpu.utils.config import SolverOptions
-        from amg_tpu.utils.runner import run_experiment
+        from amg_jax.utils.config import SolverOptions
+        from amg_jax.utils.runner import run_experiment
 
         st = run_experiment(SolverOptions(
             problem="5pt", n=24, solver="mult_multadd",
@@ -266,10 +266,10 @@ def test_no_resnorm_fixed_cycles():
     import jax.numpy as jnp
     import numpy as np
 
-    from amg_tpu.problems import laplacian_2d_5pt
-    from amg_tpu.setup.hierarchy import HierarchyParams, build_hierarchy
-    from amg_tpu.smooth import SmootherType
-    from amg_tpu.solve import CycleConfig, CycleType, solve
+    from amg_jax.problems import laplacian_2d_5pt
+    from amg_jax.setup.hierarchy import HierarchyParams, build_hierarchy
+    from amg_jax.smooth import SmootherType
+    from amg_jax.solve import CycleConfig, CycleType, solve
 
     prob = laplacian_2d_5pt(16)
     hh, hier = build_hierarchy(

@@ -5,15 +5,15 @@ import pytest
 
 import jax.numpy as jnp
 
-from amg_tpu.problems import (
+from amg_jax.problems import (
     difconv_3d,
     laplacian_2d_5pt,
     laplacian_3d_7pt,
     laplacian_3d_27pt,
     vardifconv_3d,
 )
-from amg_tpu.sparse.csr import CSRMatrix
-from amg_tpu.sparse.ell import ell_from_csr, ell_residual, ell_spgemv, ell_spmv
+from amg_jax.sparse.csr import CSRMatrix
+from amg_jax.sparse.ell import ell_from_csr, ell_residual, ell_spgemv, ell_spmv
 
 
 def random_csr(n, m, density=0.2, seed=0):

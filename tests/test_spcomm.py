@@ -12,19 +12,19 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from amg_tpu.parallel import make_row_mesh
-from amg_tpu.parallel.dist import (
+from amg_jax.parallel import make_row_mesh
+from amg_jax.parallel.dist import (
     _pad_csr,
     build_dist_hierarchy,
     pad_vector,
     shard_vector,
     unpad_vector,
 )
-from amg_tpu.parallel.spcomm import build_halo_ell
-from amg_tpu.problems import laplacian_2d_5pt, laplacian_3d_7pt
-from amg_tpu.setup.hierarchy import HierarchyParams, build_host_hierarchy
-from amg_tpu.smooth import SmootherType
-from amg_tpu.solve import CycleConfig, CycleType, solve
+from amg_jax.parallel.spcomm import build_halo_ell
+from amg_jax.problems import laplacian_2d_5pt, laplacian_3d_7pt
+from amg_jax.setup.hierarchy import HierarchyParams, build_host_hierarchy
+from amg_jax.smooth import SmootherType
+from amg_jax.solve import CycleConfig, CycleType, solve
 
 
 class TestHaloSpmv:
@@ -114,7 +114,7 @@ class TestHaloHierarchySolve:
         cfg = CycleConfig(cycle=CycleType.MULT, smoother=SmootherType.L1_JACOBI)
         b_np = np.random.default_rng(0).random(prob.n)
 
-        from amg_tpu.setup.hierarchy import device_hierarchy
+        from amg_jax.setup.hierarchy import device_hierarchy
 
         hier1 = device_hierarchy(hh, params)
         res1 = solve(hier1, cfg, jnp.asarray(b_np), tol=1e-8, max_cycles=60)
@@ -141,7 +141,7 @@ class TestHaloHierarchySolve:
         mesh = make_row_mesh(8)
         hier8, pad_info = build_dist_hierarchy(hh, params, mesh, comm="halo")
         cfg = CycleConfig(cycle=CycleType.MULT, smoother=SmootherType.L1_JACOBI)
-        from amg_tpu.solve.cycles import mult_vcycle
+        from amg_jax.solve.cycles import mult_vcycle
 
         b8 = pad_vector(jnp.zeros(prob.n), pad_info, mesh)
         fn = jax.jit(lambda h, x, b: mult_vcycle(h, cfg, x, b))
@@ -152,8 +152,8 @@ class TestHaloHierarchySolve:
             assert int(m.group(1)) < n0_pad, m.group(0)
 
     def test_runner_halo_end_to_end(self):
-        from amg_tpu.utils.config import SolverOptions
-        from amg_tpu.utils.runner import run_experiment
+        from amg_jax.utils.config import SolverOptions
+        from amg_jax.utils.runner import run_experiment
 
         st = run_experiment(SolverOptions(
             problem="5pt", n=24, solver="mult", num_devices=8, comm="halo",
@@ -167,7 +167,7 @@ class TestHaloBSR:
 
     @pytest.mark.parametrize("D", [4, 8])
     def test_matches_scipy(self, D):
-        from amg_tpu.parallel.spcomm import build_halo_bsr
+        from amg_jax.parallel.spcomm import build_halo_bsr
 
         prob = laplacian_3d_7pt(16)  # 4096 rows; % (8*8) == 0
         mesh = make_row_mesh(D)
@@ -180,7 +180,7 @@ class TestHaloBSR:
         )
 
     def test_comm_is_blocked_boundary(self):
-        from amg_tpu.parallel.spcomm import build_halo_bsr
+        from amg_jax.parallel.spcomm import build_halo_bsr
 
         prob = laplacian_3d_7pt(16)
         mesh = make_row_mesh(8)
@@ -195,7 +195,7 @@ class TestHaloBSR:
         assert h.comm_bytes_per_matvec() <= 2 * 256 * 8 * 2  # <= 2 planes+pad
 
     def test_all_to_all_fallback(self):
-        from amg_tpu.parallel.spcomm import build_halo_bsr
+        from amg_jax.parallel.spcomm import build_halo_bsr
 
         prob = laplacian_3d_7pt(16)
         mesh = make_row_mesh(8)
@@ -209,8 +209,8 @@ class TestHaloBSR:
 
     def test_smoother_runs_on_halo_bsr(self):
         """HaloBSR drops into the smoother/solver stack via @."""
-        from amg_tpu.parallel.spcomm import build_halo_bsr
-        from amg_tpu.smooth import SmootherType, make_smoother_data, smooth
+        from amg_jax.parallel.spcomm import build_halo_bsr
+        from amg_jax.smooth import SmootherType, make_smoother_data, smooth
 
         prob = laplacian_3d_7pt(16)
         mesh = make_row_mesh(8)
@@ -220,7 +220,7 @@ class TestHaloBSR:
         u = jnp.zeros_like(b)
         u1 = smooth(h, sm, SmootherType.L1_JACOBI, u, b, num_sweeps=3)
         # compare against the plain ELL path
-        from amg_tpu.sparse.ell import ell_from_csr
+        from amg_jax.sparse.ell import ell_from_csr
 
         A_ell = ell_from_csr(prob.A)
         u_ref = smooth(A_ell, sm, SmootherType.L1_JACOBI, u, b, num_sweeps=3)
@@ -232,8 +232,8 @@ class TestHaloBSR:
 def test_dist_hierarchy_halo_bsr():
     """comm='halo' with device_format bsr builds HaloBSR levels where the
     tiling divides, and the V-cycle matches the ELL halo path."""
-    from amg_tpu.parallel.spcomm import HaloBSR
-    from amg_tpu.setup.hierarchy import build_host_hierarchy as bhh
+    from amg_jax.parallel.spcomm import HaloBSR
+    from amg_jax.setup.hierarchy import build_host_hierarchy as bhh
 
     prob = laplacian_3d_7pt(12)
     params = HierarchyParams(

@@ -1,4 +1,4 @@
-"""Micro-benchmark: ELL vs BSR SpMV on unstructured matrices (real TPU).
+"""Micro-benchmark: ELL vs BSR SpMV on unstructured matrices.
 
 Measures marginal cost per matvec (chained dependent applies, value-fetch
 timed) for the device formats on AMG-relevant matrices:
@@ -43,8 +43,8 @@ def bench_matrix(
     import jax
     import jax.numpy as jnp
 
-    from amg_tpu.sparse.bsr import bsr_fill_stats, bsr_from_csr, bsr_spmv
-    from amg_tpu.sparse.ell import ell_from_csr, ell_spmv
+    from amg_jax.sparse.bsr import bsr_fill_stats, bsr_from_csr, bsr_spmv
+    from amg_jax.sparse.ell import ell_from_csr, ell_spmv
 
     n, m = csr.shape
     rng = np.random.default_rng(0)
@@ -81,12 +81,16 @@ def main():
     import jax.numpy as jnp
 
     n_side = int(sys.argv[1]) if len(sys.argv) > 1 else 48
-    backend = jax.default_backend()
-    dtype = jnp.float32 if backend != "cpu" else jnp.float64
-    print(f"backend={backend} dtype={dtype.__name__} n_side={n_side}")
+    from amg_jax import dtypes
 
-    from amg_tpu.problems import laplacian_3d_27pt
-    from amg_tpu.problems.elasticity import elasticity_beam
+    dtype = dtypes.default_solve_dtype()
+    print(
+        f"platform={dtypes.platform()} device={jax.devices()[0].device_kind} "
+        f"dtype={jnp.dtype(dtype).name} n_side={n_side}"
+    )
+
+    from amg_jax.problems import laplacian_3d_27pt
+    from amg_jax.problems.elasticity import elasticity_beam
 
     prob = laplacian_3d_27pt(n_side)
     bench_matrix("27pt (as unstructured)", prob.A, dtype)
@@ -94,7 +98,7 @@ def main():
     eprob = elasticity_beam(2 * n_side, n_side // 2, n_side // 2)
     bench_matrix("elasticity beam Q1", eprob.A, dtype)
 
-    from amg_tpu.setup.hierarchy import HierarchyParams, build_host_hierarchy
+    from amg_jax.setup.hierarchy import HierarchyParams, build_host_hierarchy
 
     hh = build_host_hierarchy(
         prob.A, HierarchyParams(build_smoothed_transfers=False)

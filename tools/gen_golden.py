@@ -97,8 +97,8 @@ CONFIGS = {
 
 
 def main():
-    from amg_tpu.utils.config import SolverOptions
-    from amg_tpu.utils.runner import run_experiment
+    from amg_jax.utils.config import SolverOptions
+    from amg_jax.utils.runner import run_experiment
 
     only = set(sys.argv[1:])  # regenerate a subset: gen_golden.py config9...
     os.makedirs(GOLDEN_DIR, exist_ok=True)
