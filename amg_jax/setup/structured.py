@@ -30,6 +30,7 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
 from amg_jax.dtypes import SETUP_DTYPE
 from amg_jax.sparse.csr import CSRMatrix
@@ -131,24 +132,43 @@ def _axis_transfer_np(sf: int, sc: int) -> np.ndarray:
     return S
 
 
-_AXL = "abcde"
+def _restrict_axis(g: jnp.ndarray, axis: int, sf: int, sc: int):
+    """Apply S^T (see _axis_transfer_np) along `axis`: the [1/2, 1, 1/2]
+    filter and even subsampling as strided slices of the zero-padded axis.
+    Elementwise float arithmetic only — no dense product, so nothing on
+    this path can run in TF32, and XLA fuses it with its neighbours."""
+    if sf == 2 * sc - 2:
+        # graded end: the standard transfer on fine nodes 0..sf-2, and the
+        # last fine node injected into the last coarse node
+        head = _restrict_axis(
+            lax.slice_in_dim(g, 0, sf - 1, axis=axis), axis, sf - 1, sc - 1)
+        return jnp.concatenate(
+            [head, lax.slice_in_dim(g, sf - 1, sf, axis=axis)], axis=axis)
+    pad = [(0, 0)] * g.ndim
+    pad[axis] = (1, 2 * sc + 1 - sf)  # padded length 2*sc + 2
+    gp = jnp.pad(g, pad)
+
+    def taps(start):
+        return lax.slice_in_dim(gp, start, start + 2 * sc, stride=2, axis=axis)
+
+    return taps(1) + 0.5 * (taps(0) + taps(2))
 
 
-def _transfer_axis(g: jnp.ndarray, S: np.ndarray, axis: int, to_coarse: bool):
-    """Contract axis `axis` of g with the 1-D transfer matrix S (fine x
-    coarse) — the separable transfer as one small dense product per axis,
-    with the tap weights as an XLA constant."""
-    nd = g.ndim
-    src = _AXL[:nd]
-    k = src[axis]
-    out = src.replace(k, "Z")
-    sub = f"{src},{k}Z->{out}" if to_coarse else f"{src},Z{k}->{out}"
-    # HIGHEST: a float32 product may otherwise run in TF32 on the GPU,
-    # which keeps ~3 decimal digits of the transferred residual
-    return jnp.einsum(
-        sub, g, jnp.asarray(S, g.dtype),
-        precision=jax.lax.Precision.HIGHEST,
-    )
+def _prolong_axis(g: jnp.ndarray, axis: int, sf: int, sc: int):
+    """Apply S along `axis`: coarse values on the even fine nodes, the mean
+    of the two coarse neighbours (zero past the end) on the odd ones."""
+    if sf == 2 * sc - 2:
+        head = _prolong_axis(
+            lax.slice_in_dim(g, 0, sc - 1, axis=axis), axis, sf - 1, sc - 1)
+        return jnp.concatenate(
+            [head, lax.slice_in_dim(g, sc - 1, sc, axis=axis)], axis=axis)
+    pad = [(0, 0)] * g.ndim
+    pad[axis] = (0, 1)
+    nxt = lax.slice_in_dim(jnp.pad(g, pad), 1, sc + 1, axis=axis)
+    both = jnp.stack([g, 0.5 * (g + nxt)], axis=axis + 1)
+    shape = list(g.shape)
+    shape[axis] = 2 * sc
+    return lax.slice_in_dim(both.reshape(shape), 0, sf, axis=axis)
 
 
 @jax.tree_util.register_pytree_node_class
@@ -179,12 +199,7 @@ class StructuredProlong:
         for d in range(g.ndim):
             if self.fine_shape[d] == self.coarse_shape[d]:
                 continue  # identity axis (vector components)
-            g = _transfer_axis(
-                g,
-                _axis_transfer_np(self.fine_shape[d], self.coarse_shape[d]),
-                d,
-                to_coarse=False,
-            )
+            g = _prolong_axis(g, d, self.fine_shape[d], self.coarse_shape[d])
         return g.reshape(-1)
 
 
@@ -216,12 +231,7 @@ class StructuredRestrict:
         for d in range(g.ndim):
             if self.fine_shape[d] == self.coarse_shape[d]:
                 continue  # identity axis (vector components)
-            g = _transfer_axis(
-                g,
-                _axis_transfer_np(self.fine_shape[d], self.coarse_shape[d]),
-                d,
-                to_coarse=True,
-            )
+            g = _restrict_axis(g, d, self.fine_shape[d], self.coarse_shape[d])
         return g.reshape(-1)
 
 

@@ -2,6 +2,7 @@
 
     python chip_smoke.py               # phases A-G on one card
     python chip_smoke.py --multichip   # the four-card paths, and only those
+    python chip_smoke.py [--multichip] --phase NAME [--phase NAME ...]
 
 Every phase drives the package through the entry point a user calls
 (`amg_jax.utils.runner.run_experiment`, the engine of `python -m
@@ -30,9 +31,10 @@ Phases (one card):
   G  the curl-curl (Maxwell) problem with -outer_solver ams_pcg.
 
 Four cards (--multichip), each compared with the same configuration on one
-card: the row-sharded DIA elasticity solve (parallel/dist.py), the
-grid-parallel async multadd (parallel/grid.py) and the grid-parallel async
-AMS (solve/ams.py::ams_grid_parallel_solve).
+card: the row-sharded DIA elasticity solve (parallel/dist.py, 156k-dof
+beam), the grid-parallel async multadd (parallel/grid.py, 27-point 128^3,
+2.1M unknowns) and the grid-parallel async AMS
+(solve/ams.py::ams_grid_parallel_solve, 92k edges).
 """
 
 from __future__ import annotations
@@ -46,17 +48,20 @@ import traceback
 
 import numpy as np
 
-# phase sizes of the full run; the tests call the phases at small sizes
+# Phase sizes of the full run; the tests call the phases at small sizes.
+# `expect` is the iteration count read on one H100 (float32, NVIDIA H100
+# 80GB HBM3) at that size; a phase fails when its count leaves
+# band(expect), so a convergence regression on the card shows here.
 FULL = {
-    "B": dict(n=192),
-    "C": dict(n=192),
-    "D": dict(nx=192, ny=24, nz=24),
+    "B": dict(n=192, expect=8),
+    "C": dict(n=192, expect=18),
+    "D": dict(nx=192, ny=24, nz=24, expect=14),
     "E": dict(n=1_000_000),
-    "F": dict(n=64),
-    "G": dict(n=32),
-    "dist_elasticity": dict(nx=143, ny=18, nz=18),
-    "grid_multadd": dict(n=64),
-    "async_ams": dict(n=16),
+    "F": dict(n=64, expect={"mult": 16, "async_multadd": 107}),
+    "G": dict(n=32, expect=58),
+    "dist_elasticity": dict(nx=143, ny=18, nz=18, expect=40),
+    "grid_multadd": dict(n=128, expect=152),
+    "async_ams": dict(n=32, expect=3344),
 }
 SINGLE_PHASES = ("B", "C", "D", "E", "F", "G")
 MULTICHIP_PHASES = ("dist_elasticity", "grid_multadd", "async_ams")
@@ -70,6 +75,21 @@ class CheckFailed(AssertionError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise CheckFailed(msg)
+
+
+def band(expect: int) -> tuple:
+    """Accepted iteration counts around a reading: 25% either way, and at
+    least one iteration. Tighter than a convergence failure, looser than
+    the few iterations a change of summation order moves."""
+    m = max(1, round(0.25 * expect))
+    return expect - m, expect + m
+
+
+def check_band(name: str, count: int, expect: int) -> None:
+    lo, hi = band(expect)
+    check(lo <= count <= hi,
+          f"{name}: {count} iterations outside [{lo}, {hi}] "
+          f"(reading {expect})")
 
 
 def card_line() -> str:
@@ -115,7 +135,7 @@ DS_ELASTICITY_TOL = 1e-6
 F32_RTOL = 1e-5
 
 
-def phase_b(n: int) -> dict:
+def phase_b(n: int, expect: int) -> dict:
     """27-point structured solve in float32, plus the operator checks."""
     import jax
     import jax.numpy as jnp
@@ -130,8 +150,9 @@ def phase_b(n: int) -> dict:
     from amg_jax.sparse.stencil import StencilOperator
 
     # float32 state stagnates at a relative residual that grows like n^2
-    # (CPU float32: 1.2e-5 at 64^3, 2.5e-5 at 96^3, so ~1e-4 at 192^3);
-    # the tolerance sits above that floor so the cycle count is meaningful
+    # (CPU float32: 1.2e-5 at 64^3, 2.5e-5 at 96^3). At 192^3 one H100
+    # stalls at 1.05e-4 from cycle 11 on (host residual 1.02e-4, 60
+    # cycles at tol 0); 3e-4 sits ~3x above it, so the count is meaningful
     tol = 1e-5 if n <= 48 else 3e-4
     stats, prob = _run(
         problem="27pt", n=n, hierarchy="structured", solver="mult",
@@ -141,9 +162,7 @@ def phase_b(n: int) -> dict:
     # float32 iterate: the host residual may exceed the device's own f32
     # residual by its rounding, which is below the floor; 1.5x covers it
     check(rel <= 1.5 * tol, f"B: host residual {rel:.3e} > 1.5*{tol:g}")
-    # h-independent geometric MG: the CPU tests see a V(1,1) rate of
-    # ~0.25-0.35 at 16^3-32^3, i.e. 6-10 cycles to these tolerances
-    check(4 <= stats.cycles <= 14, f"B: {stats.cycles} cycles outside [4, 14]")
+    check_band("B", stats.cycles, expect)
 
     dtype = default_solve_dtype()
     rng = np.random.default_rng(0)
@@ -185,7 +204,7 @@ def phase_b(n: int) -> dict:
                 prolong_err=e_p)
 
 
-def phase_c(n: int) -> dict:
+def phase_c(n: int, expect: int) -> dict:
     """Mixed precision: float32 cycles under float64 refinement."""
     tol = 1e-8
     stats, prob = _run(
@@ -196,12 +215,12 @@ def phase_c(n: int) -> dict:
     # the loop's residual is float64 on the device; the host's differs
     # only by summation order (~1e-16 of |A||x|, far below 1e-3 of tol)
     check(rel <= tol * 1.001, f"C: host residual {rel:.3e} > {tol:g}")
-    check(stats.cycles <= 40, f"C: {stats.cycles} refinement cycles > 40")
+    check_band("C", stats.cycles, expect)
     return dict(n=prob.n, cycles=stats.cycles, host_rel=rel,
                 solve_s=stats.solve_wtime, setup_s=stats.setup_wtime)
 
 
-def phase_d(nx: int, ny: int, nz: int) -> dict:
+def phase_d(nx: int, ny: int, nz: int, expect: int) -> dict:
     """Elasticity beam in DIA form: matvec check, then the DS-PCG."""
     import jax
     import jax.numpy as jnp
@@ -234,8 +253,7 @@ def phase_d(nx: int, ny: int, nz: int) -> dict:
     # the DS-measured residual and the host's float64 one differ by the
     # floor above (<1e-7 of ||b||), so 1.2x covers it
     check(rel <= tol * 1.2, f"D: host residual {rel:.3e} > 1.2*{tol:g}")
-    # the CPU runs take 17 (49k) and 25 (157k) PCG iterations to the floor
-    check(stats.cycles <= 60, f"D: {stats.cycles} PCG iterations > 60")
+    check_band("D", stats.cycles, expect)
     return dict(n=prob.n, matvec_err=e_mv, iters=stats.cycles,
                 host_rel=rel, solve_s=stats.solve_wtime,
                 setup_s=stats.setup_wtime)
@@ -279,7 +297,7 @@ def phase_e(n: int) -> dict:
     return dict(n=n, ds_dot_err=err)
 
 
-def phase_f(n: int) -> dict:
+def phase_f(n: int, expect: dict) -> dict:
     """Algebraic classical AMG, synchronous and asynchronous."""
     from amg_jax.dtypes import auto_device_format
 
@@ -296,15 +314,14 @@ def phase_f(n: int) -> dict:
         # float32 iterate (see phase B): 1.5x the solver's tolerance
         check(rel <= 1.5 * tol,
               f"F: {solver} host residual {rel:.3e} > 1.5*{tol:g}")
-        check(stats.cycles < max_cycles,
-              f"F: {solver} did not converge in {max_cycles} cycles")
+        check_band(f"F {solver}", stats.cycles, expect[solver])
         out[solver] = dict(cycles=stats.cycles, host_rel=rel,
                            solve_s=stats.solve_wtime)
     out["n"] = prob.n
     return out
 
 
-def phase_g(n: int) -> dict:
+def phase_g(n: int, expect: int) -> dict:
     """Curl-curl with the auxiliary-space (AMS) preconditioned CG."""
     # float32 CG: the true residual stalls near 1e-5 at n=16 (CPU float32,
     # 10.8k edges) while the recursive one keeps falling; 1e-4 at n >= 24
@@ -316,14 +333,14 @@ def phase_g(n: int) -> dict:
     )
     rel = host_rel_residual(prob.A, stats)
     check(rel <= 1.5 * tol, f"G: host residual {rel:.3e} > 1.5*{tol:g}")
-    check(stats.cycles < 200, "G: AMS-PCG did not converge in 200 iterations")
+    check_band("G", stats.cycles, expect)
     return dict(n=prob.n, iters=stats.cycles, host_rel=rel,
                 solve_s=stats.solve_wtime)
 
 
-def _compare_devices(name, tol, rel_band, **kw) -> dict:
+def _compare_devices(name, tol, rel_band, expect, **kw) -> dict:
     """Run one configuration on MULTICHIP_DEVICES devices and on one, and
-    check both against the host matrix."""
+    check both against the host matrix and the iteration band."""
     out = {}
     for nd in (MULTICHIP_DEVICES, 1):
         stats, prob = _run(num_devices=nd, tol=tol, **kw)
@@ -331,12 +348,13 @@ def _compare_devices(name, tol, rel_band, **kw) -> dict:
         check(rel <= rel_band * tol,
               f"{name}: {nd} device(s) host residual {rel:.3e} > "
               f"{rel_band:g}*{tol:g}")
+        check_band(f"{name} on {nd} device(s)", stats.cycles, expect)
         out[nd] = dict(cycles=stats.cycles, host_rel=rel,
                        solve_s=stats.solve_wtime)
     return dict(n=prob.n, **{f"dev{k}": v for k, v in out.items()})
 
 
-def phase_dist_elasticity(nx: int, ny: int, nz: int) -> dict:
+def phase_dist_elasticity(nx: int, ny: int, nz: int, expect: int) -> dict:
     """Row-sharded DIA elasticity (BASELINE config 4, the 156k-dof beam of
     bench.py's elasticity cell), mixed-precision PCG. nx+1 nodes must make
     n divisible by the device count, or the runner falls back to a
@@ -345,7 +363,7 @@ def phase_dist_elasticity(nx: int, ny: int, nz: int) -> dict:
     check(n_dofs % MULTICHIP_DEVICES == 0,
           f"dist_elasticity: {n_dofs} dofs do not divide over the devices")
     out = _compare_devices(
-        "dist_elasticity", DS_ELASTICITY_TOL, 1.2,
+        "dist_elasticity", DS_ELASTICITY_TOL, 1.2, expect,
         problem="elasticity", nx=nx, ny=ny, nz=nz, elast_bc="identity",
         hierarchy="structured", smoother="hybrid_jgs", num_smooth_sweeps=2,
         mixed_precision=True, num_cycles=120,
@@ -356,25 +374,28 @@ def phase_dist_elasticity(nx: int, ny: int, nz: int) -> dict:
     return out
 
 
-def phase_grid_multadd(n: int) -> dict:
+def phase_grid_multadd(n: int, expect: int) -> dict:
     """Level-parallel asynchronous multadd over the device mesh against the
     single-device bounded-staleness simulator."""
-    # the float32 floor of phase F
-    tol = 1e-5 if n <= 24 else 5e-5
+    # above the float32 floor, which grows like n^2: phase F's 1.2e-5 at
+    # 64^3; 1.2e-4 at 128^3 (the single-device simulator on one H100 stalls
+    # there after 180 cycles; four H100s reach 3e-4 at cycle 152)
+    tol = 1e-5 if n <= 24 else 5e-5 if n <= 64 else 3e-4
     return _compare_devices(
-        "grid_multadd", tol, 1.5, problem="27pt", n=n,
+        "grid_multadd", tol, 1.5, expect, problem="27pt", n=n,
         solver="async_multadd", num_cycles=600, seed=0,
     )
 
 
-def phase_async_ams(n: int) -> dict:
+def phase_async_ams(n: int, expect: int) -> dict:
     """Asynchronous additive AMS: the grid-parallel engine against the
     single-device simulator."""
-    # the float32 floor of phase G
+    # the float32 floor of phase G; at n=32 the single-device simulator
+    # on one H100 takes 3344 supersteps to 1e-4 (host residual 9.9e-5)
     tol = 1e-5 if n <= 8 else 1e-4
     return _compare_devices(
-        "async_ams", tol, 1.5, problem="maxwell", nx=n,
-        solver="async_ams", num_cycles=3000, seed=0,
+        "async_ams", tol, 1.5, expect, problem="maxwell", nx=n,
+        solver="async_ams", num_cycles=4500, seed=0,
     )
 
 
@@ -387,6 +408,20 @@ PHASE_FNS = {
 
 def phases_for(multichip: bool):
     return MULTICHIP_PHASES if multichip else SINGLE_PHASES
+
+
+def select_phases(multichip: bool, names=None):
+    """The phases to run: the whole set of the mode, or the named ones of
+    it, in the set's order."""
+    every = phases_for(multichip)
+    if not names:
+        return every
+    unknown = sorted(set(names) - set(every))
+    if unknown:
+        raise SystemExit(
+            f"chip_smoke: {', '.join(unknown)} not among "
+            f"{', '.join(every)}{' (--multichip)' if multichip else ''}")
+    return tuple(p for p in every if p in names)
 
 
 def run_phases(names, sizes=FULL) -> None:
@@ -402,7 +437,12 @@ def main(argv=None) -> int:
         "--multichip", action="store_true",
         help=f"run only the {MULTICHIP_DEVICES}-card paths",
     )
+    ap.add_argument(
+        "--phase", action="append", metavar="NAME",
+        help="run only this phase of the chosen set (repeatable)",
+    )
     args = ap.parse_args(argv)
+    phases = select_phases(args.multichip, args.phase)
 
     import jax
 
@@ -425,7 +465,7 @@ def main(argv=None) -> int:
     _report("A", seconds=round(time.perf_counter() - t0, 3),
             kind=devs[0].device_kind, count=len(devs))
     try:
-        run_phases(phases_for(args.multichip))
+        run_phases(phases)
     except Exception:
         traceback.print_exc()
         return 1

@@ -19,7 +19,7 @@ def test_peaks_lookup_known_kind():
     assert p["source"]
 
 
-@pytest.mark.parametrize("kind", ["TPU v5 lite", "cpu", "NVIDIA A100"])
+@pytest.mark.parametrize("kind", ["Intel Data Center GPU Max 1550", "cpu", "NVIDIA A100"])
 def test_peaks_lookup_unknown_kind_is_an_error(kind):
     with pytest.raises(KeyError, match="no published peaks"):
         bench.peaks_for(kind)

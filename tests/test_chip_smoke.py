@@ -15,16 +15,17 @@ sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
 
+# the iteration counts are the CPU's float64 readings at these sizes
 SMALL = {
-    "B": dict(n=16),
-    "C": dict(n=16),
-    "D": dict(nx=8, ny=2, nz=2),
+    "B": dict(n=16, expect=8),
+    "C": dict(n=16, expect=13),
+    "D": dict(nx=8, ny=2, nz=2, expect=4),
     "E": dict(n=1000),
-    "F": dict(n=10),
-    "G": dict(n=4),
-    "dist_elasticity": dict(nx=7, ny=2, nz=2),
-    "grid_multadd": dict(n=12),
-    "async_ams": dict(n=4),
+    "F": dict(n=10, expect={"mult": 10, "async_multadd": 73}),
+    "G": dict(n=4, expect=10),
+    "dist_elasticity": dict(nx=7, ny=2, nz=2, expect=4),
+    "grid_multadd": dict(n=12, expect=75),
+    "async_ams": dict(n=4, expect=88),
 }
 
 
@@ -61,6 +62,17 @@ def test_multichip_selects_only_its_phases():
     assert set(chip_smoke.FULL) == set(chip_smoke.PHASE_FNS)
 
 
+def test_phase_option_selects_within_the_mode():
+    assert chip_smoke.select_phases(False) == chip_smoke.SINGLE_PHASES
+    assert chip_smoke.select_phases(True, []) == chip_smoke.MULTICHIP_PHASES
+    assert chip_smoke.select_phases(
+        True, ["async_ams", "grid_multadd"]) == ("grid_multadd", "async_ams")
+    with pytest.raises(SystemExit, match="dist_elasticity"):
+        chip_smoke.select_phases(False, ["dist_elasticity"])
+    with pytest.raises(SystemExit, match="B"):
+        chip_smoke.select_phases(True, ["B"])
+
+
 def test_full_sizes_are_the_stated_ones():
     """192^3 for the structured phases, the 362k-dof beam, and a
     four-way-divisible beam for the sharded elasticity path."""
@@ -69,12 +81,44 @@ def test_full_sizes_are_the_stated_ones():
     assert 3 * (d["nx"] + 1) * (d["ny"] + 1) * (d["nz"] + 1) == 361_875
     e = chip_smoke.FULL["dist_elasticity"]
     assert (e["nx"] + 1) % chip_smoke.MULTICHIP_DEVICES == 0
+    # the grid paths' grids divide over the cards (no replicated fallback)
+    g = chip_smoke.FULL["grid_multadd"]["n"]
+    assert g >= 128 and g % chip_smoke.MULTICHIP_DEVICES == 0
+    assert chip_smoke.FULL["async_ams"]["n"] % chip_smoke.MULTICHIP_DEVICES == 0
 
 
 def test_check_raises():
     with pytest.raises(chip_smoke.CheckFailed, match="boom"):
         chip_smoke.check(False, "boom")
     chip_smoke.check(True, "never")
+
+
+def _readings(sizes):
+    for phase, kw in sizes.items():
+        exp = kw.get("expect")
+        if isinstance(exp, dict):
+            yield from ((f"{phase}-{k}", v) for k, v in exp.items())
+        elif phase != "E":
+            yield phase, exp
+
+
+@pytest.mark.parametrize("name,expect", list(_readings(chip_smoke.FULL)),
+                         ids=[n for n, _ in _readings(chip_smoke.FULL)])
+def test_every_solve_phase_has_a_band(name, expect):
+    """A reading exists for every solving phase, and its band catches a
+    doubled or halved iteration count."""
+    assert isinstance(expect, int) and expect > 0, name
+    lo, hi = chip_smoke.band(expect)
+    assert lo <= expect <= hi
+    assert 2 * expect > hi and expect // 2 < lo
+
+
+def test_check_band_rejects_counts_outside():
+    chip_smoke.check_band("X", 20, 16)
+    with pytest.raises(chip_smoke.CheckFailed, match=r"X: 48 iterations"):
+        chip_smoke.check_band("X", 48, 16)
+    with pytest.raises(chip_smoke.CheckFailed, match=r"outside \[12, 20\]"):
+        chip_smoke.check_band("X", 11, 16)
 
 
 @pytest.mark.parametrize("phase", chip_smoke.SINGLE_PHASES)

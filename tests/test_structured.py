@@ -15,6 +15,9 @@ from amg_jax.setup.structured import (
     _structured_P_csr,
     build_structured_hierarchy,
     VarStencilOperator,
+    _axis_transfer_np,
+    _prolong_axis,
+    _restrict_axis,
 )
 from amg_jax.smooth import SmootherType
 from amg_jax.solve import CycleConfig, CycleType, solve
@@ -37,6 +40,29 @@ class TestTransfers:
         np.testing.assert_allclose(
             np.asarray(Rd @ jnp.asarray(xf)), P.transpose() @ xf, atol=1e-14
         )
+
+    @pytest.mark.parametrize("sf,sc", [(7, 4), (8, 4), (6, 4), (10, 6), (3, 2)],
+                             ids=["odd", "even", "graded", "graded10", "tiny"])
+    @pytest.mark.parametrize("axis", [0, 1, 2])
+    def test_axis_ops_match_transfer_matrix(self, sf, sc, axis):
+        """The strided-slice restrict/prolong along one axis of a 3-D
+        array equal S^T / S of the 1-D transfer matrix, including the
+        graded end (sf = 2 sc - 2)."""
+        S = _axis_transfer_np(sf, sc)
+        rng = np.random.default_rng(axis)
+        shape = [3, 4, 5]
+        shape[axis] = sf
+        g = rng.random(shape)
+        want = np.moveaxis(
+            np.tensordot(S.T, np.moveaxis(g, axis, 0), axes=1), 0, axis)
+        got = _restrict_axis(jnp.asarray(g), axis, sf, sc)
+        np.testing.assert_allclose(np.asarray(got), want, atol=1e-14)
+        shape[axis] = sc
+        c = rng.random(shape)
+        want = np.moveaxis(
+            np.tensordot(S, np.moveaxis(c, axis, 0), axes=1), 0, axis)
+        got = _prolong_axis(jnp.asarray(c), axis, sf, sc)
+        np.testing.assert_allclose(np.asarray(got), want, atol=1e-14)
 
     def test_prolong_preserves_constants_interior(self):
         shape = (9, 9)
